@@ -12,6 +12,7 @@ from unitygaussiansplatting_torch.ops.projection import ProjectedSplats as Torch
 from unitygaussiansplatting_torch.utils import config as tcfg
 from unitygaussiansplatting_torch.utils.convert import camera_from_numpy, raw_gaussians_from_numpy
 from unitygaussiansplatting_tpu.models.camera import Camera as JaxCamera
+from unitygaussiansplatting_tpu.ops import projection as jax_types
 from unitygaussiansplatting_tpu.utils import config as jcfg
 from unitygaussiansplatting_tpu.utils.synthetic import sphere_scene
 
@@ -75,3 +76,21 @@ def proj_to_torch(jproj) -> TorchProjected:
 def within_fraction(got, want, atol):
     """Fraction of entries with |got - want| <= atol."""
     return float(np.mean(np.abs(np.asarray(got) - np.asarray(want)) <= atol))
+
+
+def saturating_projection(n=300, seed=7):
+    """Big, nearly opaque splats stacked over the whole 192x128 frame: most
+    tiles saturate part-way through their pairs, so the per-tile early exit
+    decides what is composited."""
+    rng = np.random.default_rng(seed)
+    radius = rng.uniform(20.0, 40.0, n).astype(np.float32)
+    theta = rng.uniform(0.0, np.pi, n).astype(np.float32)
+    a1 = np.stack([np.cos(theta), np.sin(theta)], -1) * radius[:, None]
+    a2 = np.stack([np.sin(theta), -np.cos(theta)], -1) * (0.8 * radius)[:, None]
+    center = rng.uniform([0, 0], [WIDTH, HEIGHT], (n, 2)).astype(np.float32)
+    return jax_types.ProjectedSplats(
+        depth=rng.uniform(1.0, 2.0, n).astype(np.float32), center=center,
+        axis1=a1.astype(np.float32), axis2=a2.astype(np.float32),
+        conic=np.zeros((n, 3), np.float32), color=rng.uniform(0.0, 1.5, (n, 3)).astype(np.float32),
+        opacity=rng.uniform(0.8, 0.99, n).astype(np.float32), valid=np.ones(n, bool),
+    )

@@ -53,7 +53,7 @@ def test_plain_k2_and_sort_match_jax(projections, name):
     np.testing.assert_array_equal(b.pair_tile.numpy(), np.asarray(jb.pair_tile))
     np.testing.assert_array_equal(b.pair_rank.numpy(), np.asarray(jb.pair_rank))
     np.testing.assert_array_equal(b.tile_starts.numpy(), np.asarray(jb.tile_starts))
-    np.testing.assert_array_equal(b.rank_counts.numpy(), np.asarray(jb.rank_counts))
+    np.testing.assert_array_equal(b.bounds.numpy(), np.concatenate([[0], np.cumsum(np.asarray(jb.rank_counts))]))
     assert int(b.num_pairs) == int(jb.num_pairs)
     assert int(real) == int(jreal)
     if name == "overflow":
@@ -76,7 +76,7 @@ def test_unused_slots_are_sentinel(projections):
     # Slots past the demand: sentinel key, splat id N, zero fields.
     _, tproj = projections
     _, cfg = tp.configs(**tp.HEADLINE)
-    table, bounds, _, _ = tpe.prepare_table(tproj, tp.WIDTH, tp.HEIGHT, cfg)
+    table, bounds, _ = tpe.prepare_table(tproj, tp.WIDTH, tp.HEIGHT, cfg)
     k = tpe.pair_budget(tproj.depth.shape[0], cfg)
     comp, fields = tpe.expand_pairs(table, bounds, k, tp.WIDTH, tp.HEIGHT, cfg)
     demand = int(bounds[-1])
@@ -94,7 +94,7 @@ def test_unused_slots_are_sentinel(projections):
 def test_expand_pairs_rejects_bad_inputs(projections):
     _, tproj = projections
     _, cfg = tp.configs()
-    table, bounds, _, _ = tpe.prepare_table(tproj, tp.WIDTH, tp.HEIGHT, cfg)
+    table, bounds, _ = tpe.prepare_table(tproj, tp.WIDTH, tp.HEIGHT, cfg)
     with pytest.raises(ValueError):
         tpe.expand_pairs(table.double(), bounds, 1024, tp.WIDTH, tp.HEIGHT, cfg)
     with pytest.raises(ValueError):

@@ -19,7 +19,6 @@ from unitygaussiansplatting_torch.models.renderer import render_with_stats  # no
 from unitygaussiansplatting_torch.ops import rasterize_cuda as trc  # noqa: E402
 from unitygaussiansplatting_torch.ops.pair_expand import bin_and_prepare  # noqa: E402
 from unitygaussiansplatting_tpu.models.renderer import render_with_stats as jax_render_with_stats  # noqa: E402
-from unitygaussiansplatting_tpu.ops import projection as jax_types  # noqa: E402
 from unitygaussiansplatting_tpu.ops.projection import project_splats as jax_project  # noqa: E402
 
 torch.set_num_threads(2)
@@ -69,27 +68,9 @@ def test_plain_k1_matches_pallas(projections, name):
     assert ((done >= 0) & (done <= counts)).all()
 
 
-def saturating_projection(n=300, seed=7):
-    """Big, nearly opaque splats stacked over the whole 192x128 frame: most
-    tiles saturate part-way through their pairs, so the per-tile early exit
-    decides what is composited."""
-    rng = np.random.default_rng(seed)
-    radius = rng.uniform(20.0, 40.0, n).astype(np.float32)
-    theta = rng.uniform(0.0, np.pi, n).astype(np.float32)
-    a1 = np.stack([np.cos(theta), np.sin(theta)], -1) * radius[:, None]
-    a2 = np.stack([np.sin(theta), -np.cos(theta)], -1) * (0.8 * radius)[:, None]
-    center = rng.uniform([0, 0], [tp.WIDTH, tp.HEIGHT], (n, 2)).astype(np.float32)
-    return jax_types.ProjectedSplats(
-        depth=rng.uniform(1.0, 2.0, n).astype(np.float32), center=center,
-        axis1=a1.astype(np.float32), axis2=a2.astype(np.float32),
-        conic=np.zeros((n, 3), np.float32), color=rng.uniform(0.0, 1.5, (n, 3)).astype(np.float32),
-        opacity=rng.uniform(0.8, 0.99, n).astype(np.float32), valid=np.ones(n, bool),
-    )
-
-
 @pytest.mark.parametrize("chunk", [64, 128])
 def test_plain_k1_matches_pallas_past_early_exits(chunk):
-    jproj = saturating_projection()
+    jproj = tp.saturating_projection()
     jcfg, cfg = tp.configs(pair_multiplier=24.0, chunk_size=chunk)
     want = np.asarray(rpal.rasterize_tiles_pallas(jproj, tp.WIDTH, tp.HEIGHT, jcfg, interpret=True))
     got, _, done, binning = port_image(tp.proj_to_torch(jproj), cfg)

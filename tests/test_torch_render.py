@@ -144,16 +144,6 @@ def test_default_device_raises_without_cuda(monkeypatch):
         trd.render(g, tcam, backend="pallas", device="cpu")
 
 
-def test_backward_raises_not_silently_zero():
-    _, tcam = tp.cameras()
-    g = sphere_scene(n=64).activate()
-    g.means.requires_grad_(True)
-    img = trd.render(g, tcam, device="cpu")
-    assert img.requires_grad
-    with pytest.raises(NotImplementedError, match="K3/K4"):
-        img.sum().backward()
-
-
 def test_package_never_imports_jax():
     # Every module of the port imports with jax and the JAX package blocked.
     code = (

@@ -3,9 +3,10 @@
 Backends with identical semantics:
 
 - ``backend="cuda"`` (default): the fused tile pipeline; on a CUDA device the
-  hand-written kernels, on the CPU their plain PyTorch versions.  Forward only
-  in this release.
-- ``backend="reference"``: the O(N*H*W) oracle (small scenes).
+  hand-written kernels, on the CPU their plain PyTorch versions.  Its
+  backward is the hand-written one (K3 + K4).
+- ``backend="reference"``: the O(N*H*W) oracle (small scenes), differentiated
+  by autograd.
 """
 
 from __future__ import annotations
@@ -88,6 +89,7 @@ def render(
     backend: str = "cuda",
     model: torch.Tensor | None = None,
     kill_mask: torch.Tensor | None = None,
+    center_probe: torch.Tensor | None = None,
     device=None,
 ) -> torch.Tensor:
     """Render a splat cloud; (H, W, 4) premultiplied linear RGBA, alpha =
@@ -95,7 +97,7 @@ def render(
     otherwise; raises when no GPU is present and no device is given)."""
     img, _ = render_with_stats(
         gaussians, camera, settings, config, backend, model=model, kill_mask=kill_mask,
-        device=device,
+        center_probe=center_probe, device=device,
     )
     return img
 
@@ -108,12 +110,15 @@ def render_with_stats(
     backend: str = "cuda",
     model: torch.Tensor | None = None,
     kill_mask: torch.Tensor | None = None,
+    center_probe: torch.Tensor | None = None,
     want_visibility: bool = False,
     device=None,
 ) -> tuple[torch.Tensor, RenderStats]:
     """Like :func:`render` but also returns :class:`RenderStats`.
 
-    ``want_visibility`` fills ``RenderStats.visible`` with the per-splat
+    ``center_probe`` is an (N, 2) zero tensor added to the projected splat
+    centers: its gradient is the screen-space positional gradient (the 3DGS
+    densification statistic).  ``want_visibility`` fills ``RenderStats.visible`` with the per-splat
     "non-empty on-screen tile rect" mask (the 3DGS ``radii > 0`` filter).
     """
     if backend not in ("cuda", "reference"):
@@ -126,6 +131,8 @@ def render_with_stats(
     if kill_mask is not None:
         kill_mask = kill_mask.to(dev)
     proj = project_splats(g, camera, settings, model=model, kill_mask=kill_mask)
+    if center_probe is not None:
+        proj = proj._replace(center=proj.center + center_probe.to(dev))
     w, h = camera.width, camera.height
 
     visible = None

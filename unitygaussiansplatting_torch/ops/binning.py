@@ -30,9 +30,14 @@ class TileBinning(NamedTuple):
 
     pair_rank: torch.Tensor  # (K,) int32 splat id per sorted pair
     pair_tile: torch.Tensor  # (K,) int32 tile id per pair (num_tiles = sentinel)
-    rank_counts: torch.Tensor  # (N,) int32 slots generated per splat
     tile_starts: torch.Tensor  # (T + 1,) int32: pairs of tile t are [s[t], s[t+1])
-    num_pairs: torch.Tensor  # () int32 slot demand before budget clipping
+    perm: torch.Tensor  # (K,) int64 slot of each sorted pair
+    bounds: torch.Tensor  # (N + 1,) int32: slots of splat i are [b[i], b[i+1]) (clip to K)
+
+    @property
+    def num_pairs(self) -> torch.Tensor:
+        """() int32 slot demand before budget clipping."""
+        return self.bounds[-1]
 
 
 def pair_budget(num_splats: int, config: RasterizeConfig) -> int:

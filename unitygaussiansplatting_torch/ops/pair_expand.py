@@ -13,6 +13,11 @@ The port of ``bin_and_prepare`` (unitygaussiansplatting_tpu/ops/pair_expand.py):
    shifted by 31, not 32: keys >= 2^31 occur (db = 23 at 475 tiles), and a
    32-bit shift would make them negative.
 4. ``tile_starts`` from one ``searchsorted`` over the sorted keys.
+
+The sort's permutation (``TileBinning.perm``: the slot of each sorted pair)
+and the slot runs (``TileBinning.bounds``) are kept for the backward, which
+writes each pair's gradient back into its slot, where the runs are
+splat-major.
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ def expand_flags(config: RasterizeConfig) -> int:
 
 def prepare_table(proj, width: int, height: int, config: RasterizeConfig):
     """Per-splat inputs of K2: ``(table (14, N) f32, bounds (N+1,) i32,
-    counts_slots (N,) i32, num_real () i32)``.
+    num_real () i32)``; splat ``i`` owns slots ``[bounds[i], bounds[i+1])``.
 
     Table rows: cx, cy, a1x, a1y, a2x, a2y, r, g, b, opacity (0 for dead
     splats), x0, y0, nx, depth key; with ``pack_axes_u32`` rows 2/3 hold the
@@ -88,7 +93,7 @@ def prepare_table(proj, width: int, height: int, config: RasterizeConfig):
     )
     # Dead-splat geometry can be NaN (behind-camera projections).
     table = torch.where(torch.isfinite(table), table, 0.0).contiguous()
-    return table.detach(), bounds, counts_slots, num_real
+    return table.detach(), bounds, num_real
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +274,8 @@ expand_pairs.launches = 0
 def sort_pairs(comp, fields, num_tiles: int, db: int):
     """Sort slots by the int64 key and gather their fields.
 
-    Returns ``(sorted comp, sorted fields (10, K), tile_starts (T+1,) i32)``.
+    Returns ``(sorted comp, sorted fields (10, K), tile_starts (T+1,) i32,
+    perm (K,) i64)``; ``perm[j]`` is the slot of sorted pair ``j``.
     Ties in the key are never-used tail slots or repeated culls of one
     splat, whose fields are equal, so the result does not depend on the
     sort's tie order.
@@ -278,7 +284,7 @@ def sort_pairs(comp, fields, num_tiles: int, db: int):
     fields_s = fields.index_select(1, perm)
     tile_keys = (torch.arange(num_tiles + 1, device=comp.device, dtype=torch.int64) << db) << SPLAT_BITS
     tile_starts = torch.searchsorted(comp_s, tile_keys).to(torch.int32)
-    return comp_s, fields_s, tile_starts
+    return comp_s, fields_s, tile_starts, perm
 
 
 def bin_and_prepare(proj, width: int, height: int, config: RasterizeConfig = RasterizeConfig()):
@@ -294,14 +300,14 @@ def bin_and_prepare(proj, width: int, height: int, config: RasterizeConfig = Ras
     num_tiles = tiles_x * tiles_y
     db = depth_key_bits(num_tiles)
     k = pair_budget(n, config)
-    table, bounds, counts_slots, num_real = prepare_table(proj, width, height, config)
+    table, bounds, num_real = prepare_table(proj, width, height, config)
     comp, fields = expand_pairs(table, bounds, k, width, height, config)
-    comp_s, fields_s, tile_starts = sort_pairs(comp, fields, num_tiles, db)
+    comp_s, fields_s, tile_starts, perm = sort_pairs(comp, fields, num_tiles, db)
     binning = TileBinning(
         pair_rank=(comp_s & ((1 << SPLAT_BITS) - 1)).to(torch.int32),
         pair_tile=(comp_s >> (SPLAT_BITS + db)).to(torch.int32),
-        rank_counts=counts_slots,
         tile_starts=tile_starts,
-        num_pairs=bounds[n],
+        perm=perm,
+        bounds=bounds,
     )
     return binning, fields_s, num_real

@@ -5,7 +5,8 @@
 (``build_schedule``) folded into the kernel: one thread block per tile walks
 the tile's sorted pair range in steps cut at global multiples of
 ``chunk_size``.  :class:`Rasterize` runs binning (K2 + sort) and K1 and
-untiles the result; it is forward only.
+untiles the result; its backward runs the backward composite (K3) and the
+run reduce (K4) of ``rasterize_cuda_bwd``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from . import cuda_build
 from .binning import tile_grid
 from .pair_expand import NUM_FIELDS, bin_and_prepare
 from .projection import ProjectedSplats
+from .rasterize_cuda_bwd import composite_bwd, run_reduce
 
 
 def composite_tiles_plain(fields, tile_starts, width: int, height: int, config: RasterizeConfig):
@@ -137,13 +139,28 @@ def untile(raw, width: int, height: int, config: RasterizeConfig):
     return img[:height, :width]
 
 
+def tile_layout(img, width: int, height: int, config: RasterizeConfig):
+    """Inverse of :func:`untile`: (H, W, 4) image -> (T+1, 4, P) tile-major
+    buffer, zero for padding pixels and for the sentinel tile (row T)."""
+    th, tw = config.tile_h, config.tile_w
+    tiles_x, tiles_y = tile_grid(width, height, config)
+    padded = torch.nn.functional.pad(img, (0, 0, 0, tiles_x * tw - width, 0, tiles_y * th - height))
+    t = padded.reshape(tiles_y, th, tiles_x, tw, 4).permute(0, 2, 4, 1, 3)
+    t = t.reshape(tiles_x * tiles_y, 4, th * tw)
+    return torch.cat([t, t.new_zeros((1, 4, th * tw))])
+
+
 class Rasterize(torch.autograd.Function):
     """Bin (K2 + sort) and composite (K1): ``(image (H, W, 4), slot demand
-    () int32)``, as a forward-only autograd node.
+    () int32)``.
 
-    Its backward raises: the backward composite and run-reduce kernels (the
-    TPU package's K3/K4, rasterize_pallas_bwd.py) are the port's next slice.
-    Returning an image that silently carries no gradient would be worse.
+    The port of the TPU package's ``rasterize_tiles_pallas_diff`` custom VJP
+    (``_diff_fwd``/``_diff_bwd``).  The backward lays the image gradient out
+    in tiles, runs K3 (per-pair gradients written into the pairs' slots) and
+    K4 (per-splat sums over the splat-major slot runs), and returns the
+    gradients of ``center``, ``axis1``, ``axis2``, ``color`` and ``opacity``.
+    ``depth``, ``conic`` and ``valid`` get none: binning is not
+    differentiable, and the composite reads the axes, not the conic.
     """
 
     @staticmethod
@@ -152,18 +169,26 @@ class Rasterize(torch.autograd.Function):
         binning, fields, _ = bin_and_prepare(proj, width, height, config)
         raw, _ = composite_tiles(fields, binning.tile_starts, width, height, config)
         ctx.mark_non_differentiable(binning.num_pairs)
+        ctx.save_for_backward(fields, binning.tile_starts, raw, binning.perm, binning.bounds)
+        ctx.frame = (width, height, config)
         return untile(raw, width, height, config), binning.num_pairs
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "the cuda backend is forward only: the backward composite and run-reduce "
-            "kernels (K3/K4) come with the port's training slice"
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_img, _grad_demand):
+        fields, tile_starts, raw, perm, bounds = ctx.saved_tensors
+        width, height, config = ctx.frame
+        dout = tile_layout(grad_img.to(torch.float32), width, height, config)
+        dpairs, _ = composite_bwd(fields, tile_starts, raw, dout, perm, width, height, config)
+        dsplat = run_reduce(dpairs, bounds)  # (10, N)
+        return (
+            dsplat[0:2].T, dsplat[2:4].T, dsplat[4:6].T, dsplat[6:9].T, dsplat[9],
+            None, None, None, None, None, None,
         )
 
 
 def rasterize(proj: ProjectedSplats, width: int, height: int, config: RasterizeConfig):
-    """Forward rasterization through :class:`Rasterize`; ``(image, demand)``."""
+    """Differentiable rasterization through :class:`Rasterize`; ``(image, demand)``."""
     return Rasterize.apply(
         proj.center, proj.axis1, proj.axis2, proj.color, proj.opacity, proj.depth,
         proj.valid, proj.conic, width, height, config,

@@ -56,8 +56,9 @@ class RasterizeConfig:
     # Clip splats to their |q| <= 2 eigen-axis quad
     # (RenderGaussianSplats.shader:54-55).
     quad_clip: bool = True
-    # Hand-written backward of the TPU package (the port's backward is the
-    # next slice).
+    # TPU package only: False swaps its hand-written backward for XLA
+    # autodiff of its tile path.  The port's backward is always K3 + K4; it
+    # has no counterpart until the port has the XLA-style tile path.
     pallas_backward: bool = True
     # Round pair color+opacity through fp16 (SplatUtilities.compute:247-248).
     pack_color_f16: bool = True
@@ -66,7 +67,8 @@ class RasterizeConfig:
     # Put the axis pair on the (theta 12 | log2|a1| 10 | log2|a2| 10) lattice;
     # supersedes pack_axes_f16.
     pack_axes_u32: bool = False
-    # bf16 rounding of per-pair backward gradients (backward slice).
+    # Round each pair's backward gradients to bf16 (nearest even) before the
+    # per-splat sums, which stay float32.
     pack_grads_bf16: bool = False
     # Quantize each pair's center in its own eigen-frame relative to its tile
     # center (12-bit major / 17-bit minor offset); lossy, needs the ellipse
