@@ -40,6 +40,9 @@ CONFIGS = {
     "axes-u32+rgba8": dict(pack_axes_u32=True, pack_color_rgba8=True),
     "headline": HEADLINE,
 }
+# A K1 checkpoint segment longer than any tile's walk at these sizes: K3 from
+# such checkpoints walks each tile whole, from T = 1 and a zero prefix.
+WHOLE_TILE_STEPS = 1 << 20
 
 
 def configs(**kw):

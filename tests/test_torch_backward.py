@@ -143,11 +143,13 @@ def test_k3_plain_matches_pallas_bwd(name):
     dpairs = np.asarray(jbwd.steps_to_pair_gradients(dsteps, binning, tiles_x * tiles_y, jcfg.chunk_size))
     want = dpairs.transpose(1, 0, 2).reshape(dpairs.shape[1], -1)  # (10, K) or (5, K) u32
 
-    f10 = np.asarray(fields).transpose(1, 0, 2).reshape(fields.shape[1], -1)[:10]
+    f10 = torch.from_numpy(np.asarray(fields).transpose(1, 0, 2).reshape(fields.shape[1], -1)[:10].copy())
     k = f10.shape[1]
+    ts = torch.from_numpy(np.array(binning.tile_starts))
+    # K3 walks each tile whole: one segment per tile, from the walk's start.
+    _, _, ck = trc.composite_tiles_plain(f10, ts, w, h, cfg, checkpoints=True, segment_steps=tp.WHOLE_TILE_STEPS)
     got, done = tbwd.composite_bwd(
-        torch.from_numpy(f10.copy()), torch.from_numpy(np.array(binning.tile_starts)),
-        torch.from_numpy(np.array(raw)), torch.from_numpy(np.array(dout)), torch.arange(k), w, h, cfg,
+        f10, ts, torch.from_numpy(np.array(raw)), torch.from_numpy(np.array(dout)), torch.arange(k), w, h, cfg, ck,
     )
     assert got.shape == (10, k) and done.shape == (tiles_x * tiles_y,)
     if cfg.pack_grads_bf16:
@@ -169,9 +171,9 @@ def test_k3_exit_and_determinism_match_k1():
     _, cfg = tp.configs(pair_multiplier=24.0, chunk_size=64)
     tproj = tp.proj_to_torch(tp.saturating_projection())
     binning, fields, _ = bin_and_prepare(tproj, tp.WIDTH, tp.HEIGHT, cfg)
-    raw, done = trc.composite_tiles(fields, binning.tile_starts, tp.WIDTH, tp.HEIGHT, cfg)
+    raw, done, ck = trc.composite_tiles(fields, binning.tile_starts, tp.WIDTH, tp.HEIGHT, cfg, checkpoints=True)
     dout = trc.tile_layout(torch.from_numpy(weight_image()), tp.WIDTH, tp.HEIGHT, cfg)
-    args = (fields, binning.tile_starts, raw, dout, binning.perm, tp.WIDTH, tp.HEIGHT, cfg)
+    args = (fields, binning.tile_starts, raw, dout, binning.perm, tp.WIDTH, tp.HEIGHT, cfg, ck)
     grads, done_bwd = tbwd.composite_bwd(*args)
     counts = binning.tile_starts[1:] - binning.tile_starts[:-1]
     assert int((done < counts).sum()) >= counts.numel() // 3
@@ -242,15 +244,18 @@ def test_bwd_wrappers_reject_bad_inputs():
     starts = torch.zeros(tiles + 1, dtype=torch.int32)
     buf = torch.zeros((tiles + 1, 4, 2048))
     perm = torch.arange(64)
-    tbwd.composite_bwd(fields, starts, buf, buf, perm, tp.WIDTH, tp.HEIGHT, cfg)
+    _, _, ck = trc.composite_tiles_plain(fields, starts, tp.WIDTH, tp.HEIGHT, cfg, checkpoints=True)
+    tbwd.composite_bwd(fields, starts, buf, buf, perm, tp.WIDTH, tp.HEIGHT, cfg, ck)
     with pytest.raises(ValueError):
-        tbwd.composite_bwd(fields[:9], starts, buf, buf, perm, tp.WIDTH, tp.HEIGHT, cfg)
+        tbwd.composite_bwd(fields[:9], starts, buf, buf, perm, tp.WIDTH, tp.HEIGHT, cfg, ck)
     with pytest.raises(ValueError):
-        tbwd.composite_bwd(fields, starts, buf, buf, perm.int(), tp.WIDTH, tp.HEIGHT, cfg)
+        tbwd.composite_bwd(fields, starts, buf, buf, perm.int(), tp.WIDTH, tp.HEIGHT, cfg, ck)
     with pytest.raises(ValueError):
-        tbwd.composite_bwd(fields, starts, buf[:, :3], buf, perm, tp.WIDTH, tp.HEIGHT, cfg)
+        tbwd.composite_bwd(fields, starts, buf[:, :3], buf, perm, tp.WIDTH, tp.HEIGHT, cfg, ck)
     with pytest.raises(ValueError):  # neither CPU (plain version) nor CUDA (kernel)
-        tbwd.composite_bwd(*(x.to("meta") for x in (fields, starts, buf, buf, perm)), tp.WIDTH, tp.HEIGHT, cfg)
+        meta_ck = tbwd.Checkpoints(*(x.to("meta") for x in ck[:3]), ck.segment_steps)
+        tbwd.composite_bwd(*(x.to("meta") for x in (fields, starts, buf, buf, perm)), tp.WIDTH, tp.HEIGHT, cfg,
+                           meta_ck)
     bounds = torch.tensor([0, 10, 64], dtype=torch.int32)
     assert tbwd.run_reduce(fields, bounds).shape == (10, 2)
     with pytest.raises(ValueError):

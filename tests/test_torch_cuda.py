@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
-and one backward through ``render`` on the card against the CPU.
+and one backward through ``render`` on the card against the CPU.  K1 runs
+as clusters of CTAs and saves K3's checkpoints; K3 runs one block per
+segment from them.
 
 Marked ``cuda``: each test skips without a CUDA device.  This file imports
 neither JAX nor the JAX package, so it also runs where JAX is not installed
@@ -13,13 +15,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from unitygaussiansplatting_torch.models.camera import Camera  # noqa: E402
+from unitygaussiansplatting_torch.ops import cuda_build  # noqa: E402
 from unitygaussiansplatting_torch.ops import pair_expand as pe  # noqa: E402
 from unitygaussiansplatting_torch.models.gaussians import Gaussians  # noqa: E402
 from unitygaussiansplatting_torch.models.renderer import render  # noqa: E402
 from unitygaussiansplatting_torch.ops import rasterize_cuda as rc  # noqa: E402
 from unitygaussiansplatting_torch.ops import rasterize_cuda_bwd as rb  # noqa: E402
 from unitygaussiansplatting_torch.ops.binning import depth_key_bits, pair_budget, tile_grid  # noqa: E402
-from unitygaussiansplatting_torch.ops.projection import project_splats  # noqa: E402
+from unitygaussiansplatting_torch.ops.projection import ProjectedSplats, project_splats  # noqa: E402
 from unitygaussiansplatting_torch.utils.config import RasterizeConfig  # noqa: E402
 from unitygaussiansplatting_torch.utils.synthetic import sphere_scene  # noqa: E402
 
@@ -28,6 +31,10 @@ WIDTH, HEIGHT = 192, 128
 HEADLINE = dict(pair_multiplier=4.0, chunk_size=256, pack_axes_u32=True, pack_center_u32=True,
                 pack_color_rgba8=True)
 CONFIGS = {"default": {}, "small-tiles": dict(tile_h=8, chunk_size=64), "headline": HEADLINE}
+# 64x2 = 128 px: a cluster of 4 CTAs (8 would leave each less than a warp);
+# chunk 1024: a 48 KB stage beside the static exit flags.
+K1_CONFIGS = dict(CONFIGS, **{"tiles-64x2": dict(tile_h=2, chunk_size=32), "chunk-1024": dict(chunk_size=1024)})
+K1_CLUSTER = {"default": 8, "small-tiles": 8, "headline": 8, "tiles-64x2": 4, "chunk-1024": 8}
 BWD_CONFIGS = dict(CONFIGS, **{"headline-bf16": dict(HEADLINE, pack_grads_bf16=True)})
 FIELD_TOL = dict(rtol=1e-6, atol=1e-6)
 K1_ATOL = 5e-6  # tests/test_pallas.py:49
@@ -68,54 +75,148 @@ def test_k2_kernel_matches_plain(device, name):
     torch.testing.assert_close(fields, fields_p, **FIELD_TOL)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", list(CONFIGS))
-def test_k1_kernel_matches_plain(device, name):
-    cfg = RasterizeConfig(**CONFIGS[name])
-    table, bounds, k = pipeline_inputs(device, cfg)
-    tiles_x, tiles_y = tile_grid(WIDTH, HEIGHT, cfg)
-    num_tiles = tiles_x * tiles_y
-    comp, fields = pe.expand_pairs_plain(table, bounds, k, WIDTH, HEIGHT, cfg)
-    _, fields_s, starts, _ = pe.sort_pairs(comp, fields, num_tiles, depth_key_bits(num_tiles))
-    before = rc.composite_tiles.launches
-    raw, done = rc.composite_tiles(fields_s, starts, WIDTH, HEIGHT, cfg)
-    raw_p, done_p = rc.composite_tiles_plain(fields_s, starts, WIDTH, HEIGHT, cfg)
-    torch.cuda.synchronize()
-    assert rc.composite_tiles.launches == before + 1
-    torch.testing.assert_close(raw, raw_p, rtol=0, atol=K1_ATOL)
-    assert torch.equal(done, done_p)
-
-
-def backward_inputs(device, cfg):
+def sorted_inputs(device, cfg):
     table, bounds, k = pipeline_inputs(device, cfg)
     tiles_x, tiles_y = tile_grid(WIDTH, HEIGHT, cfg)
     num_tiles = tiles_x * tiles_y
     comp, fields = pe.expand_pairs_plain(table, bounds, k, WIDTH, HEIGHT, cfg)
     _, fields_s, starts, perm = pe.sort_pairs(comp, fields, num_tiles, depth_key_bits(num_tiles))
-    raw, done = rc.composite_tiles_plain(fields_s, starts, WIDTH, HEIGHT, cfg)
+    return fields_s, starts, perm, bounds
+
+
+def assert_k1_matches_plain(fields, starts, width, height, cfg, segment_steps=rb.SEGMENT_STEPS):
+    """K1 and its checkpoints against the plain version's; returns the
+    kernel's ``(raw, pairs_done, checkpoints)``."""
+    before = rc.composite_tiles.launches
+    raw, done, ck = rc.composite_tiles(fields, starts, width, height, cfg, checkpoints=True,
+                                       segment_steps=segment_steps)
+    raw_p, done_p, ck_p = rc.composite_tiles_plain(fields, starts, width, height, cfg, checkpoints=True,
+                                                   segment_steps=segment_steps)
+    torch.cuda.synchronize()
+    assert rc.composite_tiles.launches == before + 1
+    torch.testing.assert_close(raw, raw_p, rtol=0, atol=K1_ATOL)
+    assert torch.equal(done, done_p)
+    assert torch.equal(ck.seg_starts, ck_p.seg_starts) and ck.state.shape == ck_p.state.shape
+    _, pairs = rb.segment_pairs(starts, ck, cfg.chunk_size)
+    reached = pairs > 0  # written by both
+    torch.testing.assert_close(ck.state[reached], ck_p.state[reached], rtol=0, atol=K1_ATOL)
+    return raw, done, ck
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(K1_CONFIGS))
+def test_k1_kernel_matches_plain(device, name):
+    cfg = RasterizeConfig(**K1_CONFIGS[name])
+    fields_s, starts, _, _ = sorted_inputs(device, cfg)
+    assert cuda_build.library("composite_fwd").composite_fwd_cluster_size(cfg.tile_w * cfg.tile_h) == K1_CLUSTER[name]
+    for steps in (1, rb.SEGMENT_STEPS):
+        assert_k1_matches_plain(fields_s, starts, WIDTH, HEIGHT, cfg, steps)
+    # Without checkpoints: the same image, nothing saved.
+    before = rc.composite_tiles.launches
+    raw, done, none = rc.composite_tiles(fields_s, starts, WIDTH, HEIGHT, cfg)
+    raw_p, done_p, _ = rc.composite_tiles_plain(fields_s, starts, WIDTH, HEIGHT, cfg)
+    torch.cuda.synchronize()
+    assert rc.composite_tiles.launches == before + 1 and none is None
+    torch.testing.assert_close(raw, raw_p, rtol=0, atol=K1_ATOL)
+    assert torch.equal(done, done_p)
+
+
+def backward_inputs(device, cfg, segment_steps=rb.SEGMENT_STEPS):
+    fields_s, starts, perm, bounds = sorted_inputs(device, cfg)
+    raw, done, ck = rc.composite_tiles(fields_s, starts, WIDTH, HEIGHT, cfg, checkpoints=True,
+                                       segment_steps=segment_steps)
     gen = torch.Generator(device=device).manual_seed(5)
-    dout = torch.randn((num_tiles + 1, 4, cfg.tile_w * cfg.tile_h), generator=gen, device=device)
+    dout = torch.randn((raw.shape[0], 4, cfg.tile_w * cfg.tile_h), generator=gen, device=device)
     dout[-1] = 0.0
-    return (fields_s, starts, raw, dout, perm), done, bounds
+    return (fields_s, starts, raw, dout, perm), ck, bounds
+
+
+def assert_k3_matches_plain(args, ck, width, height, cfg):
+    """K3 from K1's checkpoints against its plain version from the same
+    ones: within ``k3_distance``'s bars, two launches bit-identical, its exits
+    K1's."""
+    before = rb.composite_bwd.launches
+    grads, done = rb.composite_bwd(*args, width, height, cfg, checkpoints=ck)
+    again, _ = rb.composite_bwd(*args, width, height, cfg, checkpoints=ck)
+    plain, done_p = rb.composite_bwd_plain(*args, width, height, cfg, checkpoints=ck)
+    torch.cuda.synchronize()
+    assert rb.composite_bwd.launches == before + 2
+    assert torch.equal(grads.view(torch.int16) if cfg.pack_grads_bf16 else grads,
+                       again.view(torch.int16) if cfg.pack_grads_bf16 else again)  # no atomics
+    assert torch.equal(done, done_p) and torch.equal(done, ck.pairs_done)
+    assert grads.dtype == (torch.bfloat16 if cfg.pack_grads_bf16 else torch.float32)
+    distance, limit = rb.k3_distance(grads, plain)
+    assert distance <= limit
+    return grads
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(BWD_CONFIGS))
 def test_k3_kernel_matches_plain(device, name):
     cfg = RasterizeConfig(**BWD_CONFIGS[name])
-    args, done_fwd, _ = backward_inputs(device, cfg)
-    before = rb.composite_bwd.launches
-    grads, done = rb.composite_bwd(*args, WIDTH, HEIGHT, cfg)
-    again, _ = rb.composite_bwd(*args, WIDTH, HEIGHT, cfg)
-    plain, done_p = rb.composite_bwd_plain(*args, WIDTH, HEIGHT, cfg)
+    for steps in (1, rb.SEGMENT_STEPS):
+        args, ck, _ = backward_inputs(device, cfg, steps)
+        if steps == 1:
+            assert int((ck.seg_starts[1:] - ck.seg_starts[:-1]).max()) >= 3
+        assert_k3_matches_plain(args, ck, WIDTH, HEIGHT, cfg)
+
+
+def one_tile_projection(device, n=3000, seed=3):
+    """Small, faint splats packed inside the first 64x32 tile, a few
+    elsewhere: one tile holds nearly all pairs and walks ~24 steps."""
+    gen = torch.Generator().manual_seed(seed)
+    crowd = torch.rand((n, 2), generator=gen) * torch.tensor([48.0, 16.0]) + 8.0
+    rest = torch.rand((20, 2), generator=gen) * torch.tensor([WIDTH - 16.0, HEIGHT - 16.0]) + 8.0
+    m = n + 20
+    radius = torch.rand(m, generator=gen) * 2.0 + 1.5
+    theta = torch.rand(m, generator=gen) * 3.14159
+    a1 = torch.stack([torch.cos(theta), torch.sin(theta)], -1) * radius[:, None]
+    a2 = torch.stack([torch.sin(theta), -torch.cos(theta)], -1) * (0.7 * radius)[:, None]
+    proj = ProjectedSplats(
+        depth=torch.rand(m, generator=gen) + 1.0, center=torch.cat([crowd, rest]), axis1=a1, axis2=a2,
+        conic=torch.zeros((m, 3)), color=torch.rand((m, 3), generator=gen),
+        opacity=torch.rand(m, generator=gen) * 0.02 + 0.01, valid=torch.ones(m, dtype=torch.bool),
+    )
+    return ProjectedSplats(*(x.to(device) for x in proj))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["empty", "one-tile"])
+def test_k1_k3_edge_scenes_match_plain(device, scene):
+    cfg = RasterizeConfig(pair_multiplier=8.0, pack_grads_bf16=False)
+    if scene == "empty":
+        g = sphere_scene(n=256, seed=1).to(device).activate()
+        g.opacities.zero_()
+        cam = Camera.look_at([0, 0.5, -3.0], [0, 0, 0], [0, 1, 0], 45.0, WIDTH, HEIGHT).to(device)
+        proj = project_splats(g, cam)
+    else:
+        proj = one_tile_projection(device)
+    binning, fields, _ = pe.bin_and_prepare(proj, WIDTH, HEIGHT, cfg)
+    counts = binning.tile_starts[1:] - binning.tile_starts[:-1]
+    if scene == "one-tile":
+        assert int(counts[0]) > 0.95 * int(counts.sum()) and int(counts[0]) > 20 * cfg.chunk_size
+    raw, done, ck = assert_k1_matches_plain(fields, binning.tile_starts, WIDTH, HEIGHT, cfg, segment_steps=2)
+    gen = torch.Generator(device=device).manual_seed(5)
+    dout = torch.randn(raw.shape, generator=gen, device=device)
+    dout[-1] = 0.0
+    args = (fields, binning.tile_starts, raw, dout, binning.perm)
+    grads = assert_k3_matches_plain(args, ck, WIDTH, HEIGHT, cfg)
+    if scene == "empty":
+        assert (raw == 0).all() and (done == 0).all() and (grads == 0).all()
+    else:
+        assert int(done[0]) > 0 and bool(grads.abs().amax() > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keys_only", [False, True])
+def test_expand_probe_writes_zeros(device, keys_only):
+    k = 1_000_003
+    before = pe.expand_probe.launches
+    comp, fields = pe.expand_probe(k, device, keys_only=keys_only)
     torch.cuda.synchronize()
-    assert rb.composite_bwd.launches == before + 2
-    assert torch.equal(grads.view(torch.int16) if cfg.pack_grads_bf16 else grads,
-                       again.view(torch.int16) if cfg.pack_grads_bf16 else again)  # no atomics
-    assert torch.equal(done, done_p) and torch.equal(done, done_fwd)
-    assert grads.dtype == (torch.bfloat16 if cfg.pack_grads_bf16 else torch.float32)
-    distance, limit = rb.k3_distance(grads, plain)
-    assert distance <= limit
+    assert pe.expand_probe.launches == before + 1
+    assert comp.shape == (k,) and not comp.any()
+    assert fields is None if keys_only else (fields.shape == (10, k) and not fields.any())
 
 
 @pytest.mark.cuda
@@ -123,8 +224,8 @@ def test_k3_kernel_matches_plain(device, name):
 @pytest.mark.parametrize("name", ["default", "headline"])
 def test_k4_kernel_matches_plain(device, name, dtype):
     cfg = RasterizeConfig(**BWD_CONFIGS[name])
-    args, _, bounds = backward_inputs(device, cfg)
-    dpairs = rb.composite_bwd_plain(*args, WIDTH, HEIGHT, cfg)[0].to(dtype)
+    args, ck, bounds = backward_inputs(device, cfg)
+    dpairs = rb.composite_bwd_plain(*args, WIDTH, HEIGHT, cfg, checkpoints=ck)[0].to(dtype)
     for budget in (dpairs.shape[1], int(bounds[-1]) // 2):  # and truncated
         g = dpairs[:, :budget].contiguous()
         before = rb.run_reduce.launches

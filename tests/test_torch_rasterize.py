@@ -44,7 +44,7 @@ def projections():
 
 def port_image(tproj, cfg):
     binning, fields, _ = bin_and_prepare(tproj, tp.WIDTH, tp.HEIGHT, cfg)
-    raw, done = trc.composite_tiles(fields, binning.tile_starts, tp.WIDTH, tp.HEIGHT, cfg)
+    raw, done, _ = trc.composite_tiles(fields, binning.tile_starts, tp.WIDTH, tp.HEIGHT, cfg)
     return trc.untile(raw, tp.WIDTH, tp.HEIGHT, cfg), raw, done, binning
 
 

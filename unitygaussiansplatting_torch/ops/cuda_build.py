@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
-SOURCES = ("pair_expand.cu", "composite_fwd.cu", "composite_bwd.cu", "run_reduce.cu")
+SOURCES = ("pair_expand.cu", "expand_probe.cu", "composite_fwd.cu", "composite_bwd.cu", "run_reduce.cu")
 
 # --fmad=false: no multiply-add contraction, so every kernel rounds once per
 # operation like its plain PyTorch version.  No --use_fast_math: it would
@@ -44,16 +44,23 @@ SIGNATURES = {
         "expand_pairs_launch": (_I, [_P, _P, _I, _L, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P]),
         "pair_expand_error_string": (ctypes.c_char_p, [_I]),
     },
+    "expand_probe": {
+        "expand_probe_launch": (_I, [_L, _I, _P, _P, _P]),
+        "expand_probe_error_string": (ctypes.c_char_p, [_I]),
+    },
     "composite_fwd": {
         "composite_fwd_launch": (
-            _I, [_P, _L, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P],
+            _I, [_P, _L, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P, _I, _P, _P],
         ),
+        "composite_fwd_cluster_size": (_I, [_I]),
         "composite_fwd_pixels_per_thread": (_I, [_I]),
+        "composite_fwd_max_active_clusters": (_I, [_I, _I]),
         "composite_fwd_error_string": (ctypes.c_char_p, [_I]),
     },
     "composite_bwd": {
         "composite_bwd_launch": (
-            _I, [_P, _L, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P, _I, _P, _P, _P],
+            _I, [_P, _L, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P, _I, _P, _P,
+                 _P, _P, _P, _I, _I, _P, _P, _P],
         ),
         "composite_bwd_pixels_per_thread": (_I, [_I]),
         "composite_bwd_error_string": (ctypes.c_char_p, [_I]),

@@ -271,6 +271,45 @@ def expand_pairs(table, bounds, k: int, width: int, height: int, config: Rasteri
 expand_pairs.launches = 0
 
 
+def expand_probe_plain(k: int, device, keys_only: bool = False):
+    """Plain PyTorch version of the K2 grid probe: K2's outputs, all zero."""
+    comp = torch.zeros(k, dtype=torch.int64, device=device)
+    return comp, None if keys_only else torch.zeros((NUM_FIELDS, k), dtype=torch.float32, device=device)
+
+
+def expand_probe(k: int, device, keys_only: bool = False):
+    """K2's launch with none of its work: ``(comp (k,) int64, fields (10, k)
+    float32 or None)``, zeros written by one thread per slot in K2's launch
+    geometry, to all of K2's outputs or (``keys_only``) the keys alone.
+
+    A measurement tool, on no path of the system: its time is K2's floor of
+    launch + stores.  Replaces the no-op Pallas kernels of
+    tools/tpu_jobs/475_expand_overhead.py (:117 and :146).  Bound on the H100
+    by bytes (48 or 8 per slot written).  The CPU takes
+    :func:`expand_probe_plain`; a CUDA device launches the kernel.
+    """
+    device = torch.device(device)
+    if k < 0:
+        raise ValueError(f"k must be >= 0, got {k}")
+    if device.type == "cpu":
+        return expand_probe_plain(k, device, keys_only)
+    if device.type != "cuda":
+        raise ValueError(f"expand_probe runs on CPU or CUDA, got {device}")
+    comp = torch.empty(k, dtype=torch.int64, device=device)
+    fields = None if keys_only else torch.empty((NUM_FIELDS, k), dtype=torch.float32, device=device)
+    lib = cuda_build.library("expand_probe")
+    status = lib.expand_probe_launch(
+        k, int(keys_only), comp.data_ptr(), None if keys_only else fields.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    cuda_build.check(lib, "expand_probe", status, "expand_probe")
+    expand_probe.launches += 1
+    return comp, fields
+
+
+expand_probe.launches = 0
+
+
 def sort_pairs(comp, fields, num_tiles: int, db: int):
     """Sort slots by the int64 key and gather their fields.
 

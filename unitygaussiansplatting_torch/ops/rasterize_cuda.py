@@ -2,14 +2,18 @@
 
 ``composite_tiles`` is the port of the Pallas kernel ``_kernel``
 (unitygaussiansplatting_tpu/ops/rasterize_pallas.py:134) with its schedule
-(``build_schedule``) folded into the kernel: one thread block per tile walks
-the tile's sorted pair range in steps cut at global multiples of
-``chunk_size``.  :class:`Rasterize` runs binning (K2 + sort) and K1 and
-untiles the result; its backward runs the backward composite (K3) and the
-run reduce (K4) of ``rasterize_cuda_bwd``.
+(``build_schedule``) folded into the kernel: a thread-block cluster per tile,
+its CTAs splitting the tile's pixels, walks the tile's sorted pair range in
+steps cut at global multiples of ``chunk_size`` and takes the per-step exit
+together.  On request it saves the state K3 starts its segments from.
+:class:`Rasterize` runs binning (K2 + sort) and K1 and untiles the result;
+its backward runs the backward composite (K3) and the run reduce (K4) of
+``rasterize_cuda_bwd``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -18,16 +22,21 @@ from . import cuda_build
 from .binning import tile_grid
 from .pair_expand import NUM_FIELDS, bin_and_prepare
 from .projection import ProjectedSplats
-from .rasterize_cuda_bwd import composite_bwd, run_reduce
+from .rasterize_cuda_bwd import (
+    SEGMENT_STEPS, Checkpoints, composite_bwd, run_reduce, segment_capacity, segment_starts,
+)
 
 
-def composite_tiles_plain(fields, tile_starts, width: int, height: int, config: RasterizeConfig):
+def composite_tiles_plain(fields, tile_starts, width: int, height: int, config: RasterizeConfig,
+                          checkpoints: bool = False, segment_steps: int = SEGMENT_STEPS):
     """Plain PyTorch version of K1: the same steps, per tile, in a Python loop.
 
     Per step the (pairs, pixels) alphas, the exclusive prefix product of
     ``1 - alpha`` along the pairs (``torch.cumprod``) and the weighted color
     sums are whole-tensor operations; the early exit reads the tile's max
-    transmittance before each step.
+    transmittance before each step.  Returns what :func:`composite_tiles`
+    returns, the :class:`Checkpoints` at every ``segment_steps``-th step with
+    ``checkpoints``.
     """
     tiles_x, tiles_y = tile_grid(width, height, config)
     num_tiles = tiles_x * tiles_y
@@ -35,6 +44,11 @@ def composite_tiles_plain(fields, tile_starts, width: int, height: int, config: 
     npix = th * tw
     dev = fields.device
     raw = torch.zeros((num_tiles + 1, 4, npix), dtype=torch.float32, device=dev)
+    if checkpoints:
+        seg_starts = segment_starts(tile_starts, c, segment_steps)
+        seg_first = seg_starts.tolist()
+        cap = segment_capacity(fields.shape[1], num_tiles, c, segment_steps)
+        state = torch.zeros((cap, 4, npix), dtype=torch.float32, device=dev)
     pairs_done = torch.zeros(num_tiles, dtype=torch.int32, device=dev)
     a1x, a1y, a2x, a2y = fields[2], fields[3], fields[4], fields[5]
     a1_sq = torch.clamp(a1x * a1x + a1y * a1y, min=1e-12)
@@ -51,12 +65,15 @@ def composite_tiles_plain(fields, tile_starts, width: int, height: int, config: 
         px = (t % tiles_x) * float(tw) + lane_x + 0.5
         py = (t // tiles_x) * float(th) + lane_y + 0.5
         cov = torch.zeros(npix, dtype=torch.float32, device=dev)
+        tprod = torch.ones(npix, dtype=torch.float32, device=dev)
         rgb = torch.zeros((3, npix), dtype=torch.float32, device=dev)
         done = 0
-        for blk in range(s // c, (e - 1) // c + 1):
+        for step, blk in enumerate(range(s // c, (e - 1) // c + 1)):
             trans = 1.0 - cov
             if not bool(torch.max(trans) >= config.transmittance_eps):
                 break
+            if checkpoints and step % segment_steps == 0:
+                state[seg_first[t] + step // segment_steps] = torch.cat([tprod[None], rgb])
             lo, hi = max(s, blk * c), min(e, (blk + 1) * c)
             w = slice(lo, hi)
             dx = px[None, :] - fields[0, w, None]
@@ -74,27 +91,51 @@ def composite_tiles_plain(fields, tile_starts, width: int, height: int, config: 
             wgt = excl * alpha * trans[None, :]
             rgb += torch.sum(wgt[None] * fields[6:9, w, None], dim=1)
             cov = 1.0 - trans * cum[-1]
+            tprod = tprod * cum[-1]
             done += hi - lo
         raw[t, :3] = rgb
         raw[t, 3] = cov
         pairs_done[t] = done
-    return raw, pairs_done
+    ckpt = Checkpoints(state, seg_starts, pairs_done, segment_steps) if checkpoints else None
+    return raw, pairs_done, ckpt
 
 
-def composite_tiles(fields, tile_starts, width: int, height: int, config: RasterizeConfig):
+@functools.cache
+def _check_clusters(device: int, npix: int, chunk: int) -> None:
+    """Raise unless card ``device`` can place at least one of K1's clusters;
+    asked once per card, tile size and stage size."""
+    lib = cuda_build.library("composite_fwd")
+    with torch.cuda.device(device):
+        found = lib.composite_fwd_max_active_clusters(npix, chunk)
+    if found < 0:
+        cuda_build.check(lib, "composite_fwd", -found, "composite_tiles (cluster occupancy)")
+    if found == 0:
+        raise RuntimeError(f"composite_tiles: the card cannot place a cluster of "
+                           f"{lib.composite_fwd_cluster_size(npix)} CTAs for a tile of {npix} pixels")
+
+
+def composite_tiles(fields, tile_starts, width: int, height: int, config: RasterizeConfig,
+                    checkpoints: bool = False, segment_steps: int = SEGMENT_STEPS):
     """K1: composite every tile's depth-sorted pairs.
 
     ``fields`` (10, K) float32 in sorted pair order, ``tile_starts`` (T+1,)
-    int32.  Returns ``(raw (T+1, 4, P) float32, pairs_done (T,) int32)``:
-    premultiplied rgb + coverage per tile pixel (row T, the sentinel tile, is
-    zero) and the pairs each tile composited before its early exit.
-    Replaces the Pallas kernel ``_kernel``
-    (unitygaussiansplatting_tpu/ops/rasterize_pallas.py:134).  Bound on the
-    H100 by fp32 operations (~30, one of them an exp, per pair and pixel
-    evaluated); the per-pair divisions are hoisted into the shared-memory
-    staging so the per-pixel loop is multiply-adds and one expf.  CPU tensors take
-    :func:`composite_tiles_plain`; CUDA tensors launch the kernel.
+    int32.  Returns ``(raw (T+1, 4, P) float32, pairs_done (T,) int32,
+    checkpoints)``: premultiplied rgb + coverage per tile pixel (row T, the
+    sentinel tile, is zero), the pairs each tile composited before its early
+    exit, and with ``checkpoints`` the :class:`Checkpoints` that K3 starts its
+    segments of ``segment_steps`` steps from (else None; their
+    ``pairs_done`` is the same tensor).  Replaces the Pallas kernel
+    ``_kernel`` (unitygaussiansplatting_tpu/ops/rasterize_pallas.py:134).
+    Bound on the H100 by instruction issue (the function is 25 instructions
+    per pair and pixel evaluated, an accurate expf among them, and 10 more
+    where the pixel keeps the pair).  A cluster of up to 8 CTAs per tile
+    splits its pixels, so the busiest tile runs on several SMs, and clusters
+    start heaviest tile first; the per-pair divisions are hoisted into the
+    shared-memory staging.  CPU tensors take :func:`composite_tiles_plain`;
+    CUDA tensors launch the kernel.
     """
+    if segment_steps < 1:
+        raise ValueError(f"segment_steps must be >= 1, got {segment_steps}")
     tiles_x, tiles_y = tile_grid(width, height, config)
     num_tiles = tiles_x * tiles_y
     if fields.dim() != 2 or fields.shape[0] != NUM_FIELDS or fields.dtype != torch.float32:
@@ -104,7 +145,7 @@ def composite_tiles(fields, tile_starts, width: int, height: int, config: Raster
     if tile_starts.device != fields.device:
         raise ValueError("fields and tile_starts must be on one device")
     if fields.device.type == "cpu":
-        return composite_tiles_plain(fields, tile_starts, width, height, config)
+        return composite_tiles_plain(fields, tile_starts, width, height, config, checkpoints, segment_steps)
     if fields.device.type != "cuda":
         raise ValueError(f"composite_tiles runs on CPU or CUDA tensors, got {fields.device}")
     if not (fields.is_contiguous() and tile_starts.is_contiguous()):
@@ -112,19 +153,29 @@ def composite_tiles(fields, tile_starts, width: int, height: int, config: Raster
     npix = config.tile_w * config.tile_h
     lib = cuda_build.library("composite_fwd")
     if lib.composite_fwd_pixels_per_thread(npix) == 0:
-        raise ValueError(f"tile of {npix} pixels: the kernel needs a multiple of 32 up to 8192")
-    raw = torch.zeros((num_tiles + 1, 4, npix), dtype=torch.float32, device=fields.device)
-    pairs_done = torch.empty(num_tiles, dtype=torch.int32, device=fields.device)
+        raise ValueError(f"tile of {npix} pixels: the kernel needs a multiple of 32, at most 8192 a CTA")
+    _check_clusters(fields.device.index, npix, config.chunk_size)
+    dev = fields.device
+    raw = torch.zeros((num_tiles + 1, 4, npix), dtype=torch.float32, device=dev)
+    pairs_done = torch.empty(num_tiles, dtype=torch.int32, device=dev)
+    tile_order = torch.argsort(tile_starts[1:] - tile_starts[:-1], descending=True, stable=True).to(torch.int32)
+    seg_starts = state = None
+    if checkpoints:
+        seg_starts = segment_starts(tile_starts, config.chunk_size, segment_steps)
+        cap = segment_capacity(fields.shape[1], num_tiles, config.chunk_size, segment_steps)
+        state = torch.empty((cap, 4, npix), dtype=torch.float32, device=dev)
     status = lib.composite_fwd_launch(
-        fields.data_ptr(), fields.shape[1], tile_starts.data_ptr(), num_tiles, tiles_x,
-        config.tile_w, config.tile_h, config.chunk_size, config.transmittance_eps,
+        fields.data_ptr(), fields.shape[1], tile_starts.data_ptr(), tile_order.data_ptr(), num_tiles,
+        tiles_x, config.tile_w, config.tile_h, config.chunk_size, config.transmittance_eps,
         config.alpha_discard, config.alpha_max, int(config.quad_clip),
-        raw.data_ptr(), pairs_done.data_ptr(),
-        torch.cuda.current_stream(fields.device).cuda_stream,
+        raw.data_ptr(), pairs_done.data_ptr(), seg_starts.data_ptr() if checkpoints else None,
+        segment_steps, state.data_ptr() if checkpoints else None,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(lib, "composite_fwd", status, "composite_tiles")
     composite_tiles.launches += 1
-    return raw, pairs_done
+    ckpt = Checkpoints(state, seg_starts, pairs_done, segment_steps) if checkpoints else None
+    return raw, pairs_done, ckpt
 
 
 composite_tiles.launches = 0
@@ -160,36 +211,45 @@ class Rasterize(torch.autograd.Function):
     K4 (per-splat sums over the splat-major slot runs), and returns the
     gradients of ``center``, ``axis1``, ``axis2``, ``color`` and ``opacity``.
     ``depth``, ``conic`` and ``valid`` get none: binning is not
-    differentiable, and the composite reads the axes, not the conic.
+    differentiable, and the composite reads the axes, not the conic.  K1
+    saves K3's checkpoints, and the forward keeps what the backward reads,
+    only when ``need_grad``.
     """
 
     @staticmethod
-    def forward(ctx, center, axis1, axis2, color, opacity, depth, valid, conic, width, height, config):
+    def forward(ctx, center, axis1, axis2, color, opacity, depth, valid, conic, width, height, config,
+                need_grad):
         proj = ProjectedSplats(depth, center, axis1, axis2, conic, color, opacity, valid)
         binning, fields, _ = bin_and_prepare(proj, width, height, config)
-        raw, _ = composite_tiles(fields, binning.tile_starts, width, height, config)
         ctx.mark_non_differentiable(binning.num_pairs)
-        ctx.save_for_backward(fields, binning.tile_starts, raw, binning.perm, binning.bounds)
-        ctx.frame = (width, height, config)
+        if not need_grad:
+            raw, _, _ = composite_tiles(fields, binning.tile_starts, width, height, config)
+            return untile(raw, width, height, config), binning.num_pairs
+        raw, _, ckpt = composite_tiles(fields, binning.tile_starts, width, height, config, checkpoints=True)
+        ctx.save_for_backward(fields, binning.tile_starts, raw, binning.perm, binning.bounds,
+                              ckpt.state, ckpt.seg_starts, ckpt.pairs_done)
+        ctx.frame = (width, height, config, ckpt.segment_steps)
         return untile(raw, width, height, config), binning.num_pairs
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_img, _grad_demand):
-        fields, tile_starts, raw, perm, bounds = ctx.saved_tensors
-        width, height, config = ctx.frame
+        fields, tile_starts, raw, perm, bounds, state, seg_starts, fwd_done = ctx.saved_tensors
+        width, height, config, segment_steps = ctx.frame
         dout = tile_layout(grad_img.to(torch.float32), width, height, config)
-        dpairs, _ = composite_bwd(fields, tile_starts, raw, dout, perm, width, height, config)
+        ckpt = Checkpoints(state, seg_starts, fwd_done, segment_steps)
+        dpairs, _ = composite_bwd(fields, tile_starts, raw, dout, perm, width, height, config, ckpt)
         dsplat = run_reduce(dpairs, bounds)  # (10, N)
         return (
             dsplat[0:2].T, dsplat[2:4].T, dsplat[4:6].T, dsplat[6:9].T, dsplat[9],
-            None, None, None, None, None, None,
+            None, None, None, None, None, None, None,
         )
 
 
 def rasterize(proj: ProjectedSplats, width: int, height: int, config: RasterizeConfig):
     """Differentiable rasterization through :class:`Rasterize`; ``(image, demand)``."""
+    inputs = (proj.center, proj.axis1, proj.axis2, proj.color, proj.opacity)
+    need_grad = torch.is_grad_enabled() and any(x.requires_grad for x in inputs)
     return Rasterize.apply(
-        proj.center, proj.axis1, proj.axis2, proj.color, proj.opacity, proj.depth,
-        proj.valid, proj.conic, width, height, config,
+        *inputs, proj.depth, proj.valid, proj.conic, width, height, config, need_grad,
     )

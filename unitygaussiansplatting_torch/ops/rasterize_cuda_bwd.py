@@ -3,12 +3,16 @@
 The port of ``unitygaussiansplatting_tpu/ops/rasterize_pallas_bwd.py``:
 
 - :func:`composite_bwd` (K3) replaces ``_bwd_kernel``/``composite_pallas_bwd``.
-  One thread block per tile replays the forward walk and writes each pair's
-  ten field gradients into the pair's slot (``TileBinning.perm``).
+  One thread block per (tile, segment) replays the forward walk from K1's
+  :class:`Checkpoints` and writes each pair's ten field gradients into the
+  pair's slot (``TileBinning.perm``).  The TPU kernel carries its state from
+  one grid step to the next; here K1 saves it at the start of every
+  ``SEGMENT_STEPS``-th step of each tile's walk, so the steps of one tile run
+  on many SMs at once.
 - The TPU package's ``steps_to_pair_gradients`` has no counterpart: on the
   TPU two grid steps share a pair block where a tile boundary falls inside
-  it, and the fold adds them.  Here K3 walks whole tiles, a pair belongs to
-  exactly one tile, and no two steps share anything, so there is nothing to
+  it, and the fold adds them.  Here a pair belongs to exactly one tile and
+  one segment, and no two steps share anything, so there is nothing to
   fold.  Its grouping sort by splat (``pair_gradients_to_splats``) is gone
   too: writing to slots, which K2 made splat-major, groups the pairs.
 - :func:`run_reduce` (K4) replaces ``_run_reduce_kernel``/``_run_reduce``:
@@ -22,12 +26,74 @@ The math (standard 3DGS compositing gradients) is in ``csrc/composite_bwd.cu``.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..utils.config import RasterizeConfig
 from . import cuda_build
 from .binning import tile_grid
 from .pair_expand import NUM_FIELDS
+
+
+# Steps per segment of a tile's walk: K1 saves each pixel's state at the start
+# of every SEGMENT_STEPS-th step, and K3 runs one block per segment.  16 steps
+# of the headline's 256 pairs make the longest block 4,096 pairs.
+SEGMENT_STEPS = 16
+
+
+class Checkpoints(NamedTuple):
+    """K1's state at the start of each segment of each tile's walk.
+
+    ``state`` (segments, 4, P) float32: per pixel the transmittance as a
+    product of the steps' prod(1 - alpha) (K3's own rule) and the three color
+    sums, at the segment's first step; only segments the walk reached are
+    written.  ``seg_starts`` (T+1,) int32: tile t's segments are
+    ``[seg_starts[t], seg_starts[t+1])``.  ``pairs_done`` (T,) int32: the
+    pairs K1 composited per tile (K1's own ``pairs_done``), which tells K3
+    which segments have a checkpoint.  ``segment_steps``: steps per segment;
+    one segment longer than any tile's walk makes K3 walk each tile whole.
+    """
+
+    state: torch.Tensor
+    seg_starts: torch.Tensor
+    pairs_done: torch.Tensor
+    segment_steps: int
+
+
+def segment_starts(tile_starts, chunk: int, segment_steps: int):
+    """(T+1,) int32 first segment of each tile, on tile_starts' device: tile t
+    walks the steps ``tile_starts[t] // chunk .. (tile_starts[t+1] - 1) //
+    chunk``, cut into segments of ``segment_steps``."""
+    s, e = tile_starts[:-1].to(torch.int64), tile_starts[1:].to(torch.int64)
+    first, last = torch.div(s, chunk, rounding_mode="floor"), torch.div(e - 1, chunk, rounding_mode="floor")
+    steps = torch.where(e > s, last - first + 1, 0)
+    segs = torch.div(steps + segment_steps - 1, segment_steps, rounding_mode="floor")
+    return torch.cat([segs.new_zeros(1), torch.cumsum(segs, 0)]).to(torch.int32)
+
+
+def segment_capacity(k: int, num_tiles: int, chunk: int, segment_steps: int) -> int:
+    """Segments of any frame of ``k`` sorted pairs over ``num_tiles`` tiles:
+    neighbouring tiles share at most one step, so all tiles walk at most
+    ceil(k / chunk) + T steps, and each tile rounds up once."""
+    steps = -(-k // chunk) + num_tiles
+    return -(-steps // segment_steps) + num_tiles
+
+
+def segment_pairs(tile_starts, checkpoints: Checkpoints, chunk: int):
+    """Per segment slot of ``checkpoints.state``: ``(tile (S,) int64, pairs
+    (S,) int64)``, the segment's tile and the pairs of it before K1's exit
+    (-1 for slots past the frame's segments)."""
+    state, seg_starts, fwd_done, steps = checkpoints
+    num_tiles = tile_starts.shape[0] - 1
+    ids = torch.arange(state.shape[0], device=state.device, dtype=torch.int32)
+    tile = torch.clamp(torch.searchsorted(seg_starts, ids, right=True) - 1, max=num_tiles - 1)
+    s, e = tile_starts[tile].to(torch.int64), tile_starts[tile + 1].to(torch.int64)
+    seg_first = torch.div(s, chunk, rounding_mode="floor") + (ids - seg_starts[tile]).to(torch.int64) * steps
+    lo = torch.maximum(seg_first * chunk, s)
+    hi = torch.minimum(torch.minimum((seg_first + steps) * chunk, e), s + fwd_done[tile])
+    pairs = torch.where(ids < seg_starts[-1], torch.clamp(hi - lo, min=0), -1)
+    return tile, pairs
 
 
 def _pair_gradients(sums, a1x, a1y, a2x, a2y):
@@ -84,13 +150,16 @@ def k3_distance(got, want):
 
 
 def composite_bwd_plain(fields, tile_starts, raw, dout, perm, width: int, height: int,
-                        config: RasterizeConfig):
+                        config: RasterizeConfig, checkpoints: Checkpoints):
     """Plain PyTorch version of K3: the same steps, per tile, in a Python loop.
 
     Per step the (pairs, pixels) alphas, the exclusive prefix product of
     ``1 - alpha`` (``torch.cumprod``), the prefix of u (``torch.cumsum``) and
     the per-pair pixel sums are whole-tensor operations; the exit tests the
-    carried transmittance before each step.
+    carried transmittance before each step.  Each segment starts from its
+    checkpoint (K1's), as the kernel's blocks do: T from the saved product,
+    the prefix of u as D . (saved color sums); the walk stops at a segment K1
+    never reached.
     """
     tiles_x, tiles_y = tile_grid(width, height, config)
     num_tiles = tiles_x * tiles_y
@@ -108,6 +177,8 @@ def composite_bwd_plain(fields, tile_starts, raw, dout, perm, width: int, height
     lane_x = (lane % tw).to(torch.float32)
     lane_y = torch.div(lane, tw, rounding_mode="floor").to(torch.float32)
     starts = tile_starts.tolist()
+    seg_first, fwd_done = checkpoints.seg_starts.tolist(), checkpoints.pairs_done.tolist()
+    seg_steps = checkpoints.segment_steps
     for t in range(num_tiles):
         s, e = starts[t], starts[t + 1]
         if e <= s:
@@ -117,13 +188,17 @@ def composite_bwd_plain(fields, tile_starts, raw, dout, perm, width: int, height
         d_r, d_g, d_b, d_a = dout[t]
         d_ctot = d_r * raw[t, 0] + d_g * raw[t, 1] + d_b * raw[t, 2]
         d_at = d_a * (1.0 - raw[t, 3])
-        trans = torch.ones(npix, dtype=torch.float32, device=dev)
-        pref = torch.zeros(npix, dtype=torch.float32, device=dev)
         done = 0
-        for blk in range(s // c, (e - 1) // c + 1):
+        for step, blk in enumerate(range(s // c, (e - 1) // c + 1)):
+            lo, hi = max(s, blk * c), min(e, (blk + 1) * c)
+            if step % seg_steps == 0:
+                if lo - s >= fwd_done[t]:
+                    break  # K1 stopped before this segment
+                state = checkpoints.state[seg_first[t] + step // seg_steps]
+                trans = state[0]
+                pref = d_r * state[1] + d_g * state[2] + d_b * state[3]
             if not bool(torch.max(trans) >= config.transmittance_eps):
                 break
-            lo, hi = max(s, blk * c), min(e, (blk + 1) * c)
             w = slice(lo, hi)
             dx = px[None, :] - fields[0, w, None]
             dy = py[None, :] - fields[1, w, None]
@@ -163,22 +238,24 @@ def composite_bwd_plain(fields, tile_starts, raw, dout, perm, width: int, height
 
 
 def composite_bwd(fields, tile_starts, raw, dout, perm, width: int, height: int,
-                  config: RasterizeConfig):
+                  config: RasterizeConfig, checkpoints: Checkpoints):
     """K3: per-pair gradients of the ten composite fields, in slot order.
 
     ``fields`` (10, K) float32 and ``tile_starts`` (T+1,) int32 as K1 took
     them; ``raw`` (T+1, 4, P) K1's output; ``dout`` (T+1, 4, P) the upstream
     gradient in the same tile layout (:func:`rasterize_cuda.tile_layout`);
-    ``perm`` (K,) int64 the slot of each sorted pair.  Returns ``(grads (10,
-    K), pairs_done (T,) int32)``: float32, or bfloat16 with
-    ``config.pack_grads_bf16``; slots of pairs the walk never reached (after a
-    tile's exit, culled, unused) hold 0.  ``pairs_done`` counts the pairs each
-    tile walked before K3's own exit.  Replaces the Pallas kernel
+    ``perm`` (K,) int64 the slot of each sorted pair; ``checkpoints`` K1's
+    (``composite_tiles(..., checkpoints=True)``).
+    Returns ``(grads (10, K), pairs_done (T,) int32)``: float32, or bfloat16
+    with ``config.pack_grads_bf16``; slots of pairs the walk never reached
+    (after a tile's exit, culled, unused) hold 0.  ``pairs_done`` counts the
+    pairs each tile walked before K3's own exit.  Replaces the Pallas kernel
     ``_bwd_kernel`` (unitygaussiansplatting_tpu/ops/rasterize_pallas_bwd.py:76).
-    Bound on the H100 by fp32 operations (~31 per evaluated pair and pixel,
-    ~43 more where the pixel keeps the pair); see ``csrc/composite_bwd.cu``.
-    CPU tensors take :func:`composite_bwd_plain`; CUDA tensors launch the
-    kernel.
+    Bound on the H100 by instruction issue (the function is 24 instructions
+    per evaluated pair and pixel, 48 more where the pixel keeps the pair);
+    one block per (tile, segment),
+    heaviest segment first; see ``csrc/composite_bwd.cu``.  CPU tensors take
+    :func:`composite_bwd_plain`; CUDA tensors launch the kernel.
     """
     tiles_x, tiles_y = tile_grid(width, height, config)
     num_tiles = tiles_x * tiles_y
@@ -193,27 +270,41 @@ def composite_bwd(fields, tile_starts, raw, dout, perm, width: int, height: int,
             raise ValueError(f"{name} must be ({num_tiles + 1}, 4, {npix}) float32, got {tuple(x.shape)} {x.dtype}")
     if perm.shape != (k,) or perm.dtype != torch.int64:
         raise ValueError(f"perm must be ({k},) int64, got {tuple(perm.shape)} {perm.dtype}")
-    if any(x.device != fields.device for x in (tile_starts, raw, dout, perm)):
-        raise ValueError("fields, tile_starts, raw, dout and perm must be on one device")
+    state, seg_starts, fwd_done, steps = checkpoints
+    if state.dim() != 3 or state.shape[1:] != (4, npix) or state.dtype != torch.float32:
+        raise ValueError(f"checkpoint state must be (S, 4, {npix}) float32, got {tuple(state.shape)} {state.dtype}")
+    if seg_starts.shape != (num_tiles + 1,) or seg_starts.dtype != torch.int32:
+        raise ValueError(f"seg_starts must be ({num_tiles + 1},) int32, got {tuple(seg_starts.shape)}")
+    if fwd_done.shape != (num_tiles,) or fwd_done.dtype != torch.int32:
+        raise ValueError(f"checkpoint pairs_done must be ({num_tiles},) int32, got {tuple(fwd_done.shape)}")
+    if steps < 1:
+        raise ValueError(f"segment_steps must be >= 1, got {steps}")
+    tensors = [fields, tile_starts, raw, dout, perm, state, seg_starts, fwd_done]
+    if any(x.device != fields.device for x in tensors):
+        raise ValueError("fields, tile_starts, raw, dout, perm and the checkpoints must be on one device")
     if fields.device.type == "cpu":
-        return composite_bwd_plain(fields, tile_starts, raw, dout, perm, width, height, config)
+        return composite_bwd_plain(fields, tile_starts, raw, dout, perm, width, height, config, checkpoints)
     if fields.device.type != "cuda":
         raise ValueError(f"composite_bwd runs on CPU or CUDA tensors, got {fields.device}")
-    if not all(x.is_contiguous() for x in (fields, tile_starts, raw, dout, perm)):
-        raise ValueError("fields, tile_starts, raw, dout and perm must be contiguous")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("fields, tile_starts, raw, dout, perm and the checkpoints must be contiguous")
     lib = cuda_build.library("composite_bwd")
     if lib.composite_bwd_pixels_per_thread(npix) == 0:
         raise ValueError(f"tile of {npix} pixels: the kernel needs a multiple of 32 up to 8192")
+    seg_tile, seg_walk = segment_pairs(tile_starts, checkpoints, config.chunk_size)
+    seg_order = torch.argsort(seg_walk, descending=True, stable=True).to(torch.int32)
+    seg_tile = seg_tile.to(torch.int32)
     bf16 = bool(config.pack_grads_bf16)
     out_dtype = torch.bfloat16 if bf16 else torch.float32
     grads = torch.zeros((NUM_FIELDS, k), dtype=out_dtype, device=fields.device)
-    pairs_done = torch.empty(num_tiles, dtype=torch.int32, device=fields.device)
+    pairs_done = torch.zeros(num_tiles, dtype=torch.int32, device=fields.device)
     status = lib.composite_bwd_launch(
         fields.data_ptr(), k, tile_starts.data_ptr(), num_tiles, tiles_x,
         config.tile_w, config.tile_h, config.chunk_size, config.transmittance_eps,
         config.alpha_discard, config.alpha_max, int(config.quad_clip),
         raw.data_ptr(), dout.data_ptr(), perm.data_ptr(), int(bf16),
-        grads.data_ptr(), pairs_done.data_ptr(),
+        grads.data_ptr(), pairs_done.data_ptr(), seg_order.data_ptr(), seg_tile.data_ptr(),
+        seg_starts.data_ptr(), state.shape[0], steps, state.data_ptr(), fwd_done.data_ptr(),
         torch.cuda.current_stream(fields.device).cuda_stream,
     )
     cuda_build.check(lib, "composite_bwd", status, "composite_bwd")
