@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
-and one backward through ``render`` on the card against the CPU.  K1 runs
-as clusters of CTAs and saves K3's checkpoints; K3 runs one block per
+and one backward through ``render`` on the card against the CPU.  K2's
+operands come from a per-splat kernel, and K2 runs in windows of slots; K1
+runs as clusters of CTAs and saves K3's checkpoints; K3 runs one block per
 segment from them.
 
 Marked ``cuda``: each test skips without a CUDA device.  This file imports
@@ -31,6 +32,24 @@ WIDTH, HEIGHT = 192, 128
 HEADLINE = dict(pair_multiplier=4.0, chunk_size=256, pack_axes_u32=True, pack_center_u32=True,
                 pack_color_rgba8=True)
 CONFIGS = {"default": {}, "small-tiles": dict(tile_h=8, chunk_size=64), "headline": HEADLINE}
+# The per-splat pass under every lattice it rounds to.
+TABLE_CONFIGS = dict(CONFIGS, **{
+    "axes-f16": dict(pack_axes_f16=True), "color-rgba8": dict(pack_color_rgba8=True),
+    "axes-u32": dict(pack_axes_u32=True), "center-f16": dict(pack_center_u32=True, pack_axes_f16=True),
+    "no-discard": dict(alpha_discard=0.0),
+})
+# Edge scenes of both K2 passes, each with its config: every splat culled
+# (zero opacity), every splat behind the camera, NaN and infinite geometry
+# with a strided depth, an overflowing budget, one splat, fewer splats than
+# K2's 512-slot window, and splats larger than the frame on the 768 tiles of
+# 8x4 (runs longer than a window; the budget also ends inside one of them).
+EDGE_SCENES = {
+    "empty": {}, "behind-camera": HEADLINE, "nan": HEADLINE, "overflow": dict(pair_multiplier=0.5),
+    "one-splat": HEADLINE, "fewer-than-a-window": {},
+    "larger-than-frame": dict(tile_w=8, tile_h=4, chunk_size=32, pair_multiplier=8.0),
+    "overflow-in-long-run": dict(tile_w=8, tile_h=4, chunk_size=32, pair_multiplier=0.5),
+}
+K2_WINDOW = 512  # csrc/pair_expand.cu's kWindow
 # 64x2 = 128 px: a cluster of 4 CTAs (8 would leave each less than a warp);
 # chunk 1024: a 48 KB stage beside the static exit flags.
 K1_CONFIGS = dict(CONFIGS, **{"tiles-64x2": dict(tile_h=2, chunk_size=32), "chunk-1024": dict(chunk_size=1024)})
@@ -53,19 +72,113 @@ def device():
     return torch.device("cuda")
 
 
-def pipeline_inputs(device, cfg):
+def sphere_projection(device, target=(0, 0, 0)):
     g = sphere_scene(n=1500, seed=0).to(device).activate()
-    cam = Camera.look_at([0, 0.5, -3.0], [0, 0, 0], [0, 1, 0], 45.0, WIDTH, HEIGHT).to(device)
-    proj = project_splats(g, cam)
-    table, bounds, _ = pe.prepare_table(proj, WIDTH, HEIGHT, cfg)
+    cam = Camera.look_at([0, 0.5, -3.0], list(target), [0, 1, 0], 45.0, WIDTH, HEIGHT).to(device)
+    return project_splats(g, cam)
+
+
+def pipeline_inputs(device, cfg):
+    table, bounds, _ = pe.prepare_table(sphere_projection(device), WIDTH, HEIGHT, cfg)
     return table, bounds, pair_budget(table.shape[1], cfg)
 
 
+def nan_projection(device):
+    """The sphere's projection with NaN and infinite entries (behind-camera
+    splats), some still marked valid, and its depth a strided view."""
+    proj = ProjectedSplats(*(x.clone() for x in sphere_projection(device)))
+    proj.center[::7] = float("nan")
+    proj.valid[::7] = False
+    proj.axis1[3::11] = float("nan")
+    proj.center[5::13, 1] = float("inf")
+    proj.opacity[2::17] = float("nan")
+    return proj._replace(depth=torch.stack([proj.depth] * 3, -1)[:, 1])
+
+
+def larger_than_frame(proj, splats):
+    """The sphere's projection with ``splats`` stretched over the whole
+    frame, every splat valid and nearly opaque."""
+    axis1, axis2 = proj.axis1.clone(), proj.axis2.clone()
+    axis1[splats] = torch.tensor([400.0, 0.0], device=axis1.device)
+    axis2[splats] = torch.tensor([0.0, -300.0], device=axis2.device)
+    return proj._replace(axis1=axis1, axis2=axis2, opacity=torch.full_like(proj.opacity, 0.9),
+                         valid=torch.ones_like(proj.valid))
+
+
+def edge_scene(device, scene):
+    """``(projection, config)`` of one of EDGE_SCENES."""
+    cfg = RasterizeConfig(**EDGE_SCENES[scene])
+    proj = sphere_projection(device)
+    if scene == "empty":
+        proj = proj._replace(opacity=torch.zeros_like(proj.opacity))
+    elif scene == "behind-camera":
+        proj = sphere_projection(device, target=(0, 0.5, -6.0))  # looking away from the cloud
+    elif scene == "nan":
+        proj = nan_projection(device)
+    elif scene == "one-splat":
+        proj = ProjectedSplats(*(x[40:41] for x in proj))
+    elif scene == "fewer-than-a-window":
+        proj = ProjectedSplats(*(x[:100] for x in proj))
+    elif scene == "larger-than-frame":
+        proj = larger_than_frame(proj, [7, 8, 900])
+    elif scene == "overflow-in-long-run":
+        proj = larger_than_frame(proj, [50, 1200])
+    return proj, cfg
+
+
+def assert_table_matches_plain(proj, cfg):
+    """The per-splat kernel against its plain version: the table bit for
+    bit, the run bounds and the real pair count exact; returns the kernel's
+    ``(table, bounds, num_real)``."""
+    before = pe.prepare_table.launches
+    table, bounds, real = pe.prepare_table(proj, WIDTH, HEIGHT, cfg)
+    table_p, bounds_p, real_p = pe.prepare_table_plain(proj, WIDTH, HEIGHT, cfg)
+    torch.cuda.synchronize()
+    assert pe.prepare_table.launches == before + 1
+    assert table.shape == table_p.shape and table.is_contiguous()
+    assert torch.equal(table.view(torch.int32), table_p.view(torch.int32))
+    assert bounds.dtype == torch.int32 and torch.equal(bounds, bounds_p)
+    assert real.dtype == torch.int32 and int(real) == int(real_p)
+    assert bool(torch.isfinite(table).all())
+    return table, bounds, real
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(CONFIGS))
+@pytest.mark.parametrize("name", list(TABLE_CONFIGS))
+def test_prepare_table_kernel_matches_plain(device, name):
+    assert_table_matches_plain(sphere_projection(device), RasterizeConfig(**TABLE_CONFIGS[name]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", list(EDGE_SCENES) + ["no-splats"])
+def test_prepare_table_kernel_edge_scenes(device, scene):
+    if scene == "no-splats":
+        proj, cfg = ProjectedSplats(*(x[:0] for x in sphere_projection(device))), RasterizeConfig()
+    else:
+        proj, cfg = edge_scene(device, scene)
+    table, bounds, real = assert_table_matches_plain(proj, cfg)
+    n = proj.depth.shape[0]
+    runs = bounds[1:] - bounds[:-1]
+    if scene in ("empty", "behind-camera", "no-splats"):
+        assert int(real) == 0 and bool((runs == 1).all()) and int(bounds[-1]) == n
+    if scene == "behind-camera":
+        assert not bool(proj.valid.any())
+    if scene.startswith("larger-than-frame") or scene == "overflow-in-long-run":
+        assert int(runs.max()) == 768 > K2_WINDOW
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CONFIGS) + list(EDGE_SCENES) + ["odd-k"])
 def test_k2_kernel_matches_plain(device, name):
-    cfg = RasterizeConfig(**CONFIGS[name])
-    table, bounds, k = pipeline_inputs(device, cfg)
+    # Windowed K2 against the plain K2 on the per-splat kernel's table.
+    if name in CONFIGS or name == "odd-k":
+        proj, cfg = sphere_projection(device), RasterizeConfig(**CONFIGS.get(name, HEADLINE))
+    else:
+        proj, cfg = edge_scene(device, name)
+    table, bounds, _ = assert_table_matches_plain(proj, cfg)
+    n = table.shape[1]
+    # odd-k: a budget that is no multiple of the window, nor of four.
+    k = 4 * K2_WINDOW + 3 if name == "odd-k" else pair_budget(n, cfg)
     before = pe.expand_pairs.launches
     comp, fields = pe.expand_pairs(table, bounds, k, WIDTH, HEIGHT, cfg)
     comp_p, fields_p = pe.expand_pairs_plain(table, bounds, k, WIDTH, HEIGHT, cfg)
@@ -73,6 +186,13 @@ def test_k2_kernel_matches_plain(device, name):
     assert pe.expand_pairs.launches == before + 1
     assert torch.equal(comp, comp_p)
     torch.testing.assert_close(fields, fields_p, **FIELD_TOL)
+    demand = int(bounds[-1])
+    if name.startswith("overflow"):
+        assert demand > k
+    if name == "overflow-in-long-run":
+        assert int(bounds[50]) < k < int(bounds[51])  # the budget ends inside the long run
+    if name in ("one-splat", "fewer-than-a-window"):
+        assert n < K2_WINDOW < k
 
 
 def sorted_inputs(device, cfg):
@@ -208,9 +328,9 @@ def test_k1_k3_edge_scenes_match_plain(device, scene):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [1_000_003, 1 << 20])  # scalar stores, then 16- and 8-byte ones
 @pytest.mark.parametrize("keys_only", [False, True])
-def test_expand_probe_writes_zeros(device, keys_only):
-    k = 1_000_003
+def test_expand_probe_writes_zeros(device, keys_only, k):
     before = pe.expand_probe.launches
     comp, fields = pe.expand_probe(k, device, keys_only=keys_only)
     torch.cuda.synchronize()

@@ -21,7 +21,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
-SOURCES = ("pair_expand.cu", "expand_probe.cu", "composite_fwd.cu", "composite_bwd.cu", "run_reduce.cu")
+SOURCES = (
+    "pair_table.cu", "pair_expand.cu", "expand_probe.cu", "composite_fwd.cu", "composite_bwd.cu",
+    "run_reduce.cu",
+)
 
 # --fmad=false: no multiply-add contraction, so every kernel rounds once per
 # operation like its plain PyTorch version.  No --use_fast_math: it would
@@ -40,8 +43,16 @@ _F = ctypes.c_float
 # argtypes of every C entry point, by library.  Pointers and the stream are
 # c_void_p: ctypes would otherwise pass a Python int as a 32-bit int.
 SIGNATURES = {
+    "pair_table": {
+        "pair_table_launch": (
+            _I, [_P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _P, _L, _P, _L,
+                 _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P],
+        ),
+        "pair_table_error_string": (ctypes.c_char_p, [_I]),
+    },
     "pair_expand": {
         "expand_pairs_launch": (_I, [_P, _P, _I, _L, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P]),
+        "expand_pairs_blocks_per_sm": (_I, []),
         "pair_expand_error_string": (ctypes.c_char_p, [_I]),
     },
     "expand_probe": {

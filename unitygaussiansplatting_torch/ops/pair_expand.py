@@ -2,9 +2,11 @@
 
 The port of ``bin_and_prepare`` (unitygaussiansplatting_tpu/ops/pair_expand.py):
 
-1. PyTorch, N-sized: view-data rounding, tile rects, slots per splat (one
-   sentinel slot per dead splat, so no run is empty), their exclusive scan,
-   quantized depth keys and the (14, N) per-splat table.
+1. The per-splat pass, :func:`prepare_table`: per splat, the view-data
+   rounding, the tile rect, the slot count (one sentinel slot per dead
+   splat, so no run is empty), the quantized depth key and the (14, N)
+   table column, plus the real pair count; then one in-place
+   ``torch.cumsum`` of the slot counts gives the run bounds.
 2. K2, :func:`expand_pairs`: per slot, the fused sort key
    ``((tile << db) | depth_key) << 31 | splat`` as one int64 and the 10
    composite fields, decoded from the configured lattices.
@@ -39,7 +41,7 @@ QUAD_CLIP, PACK_CENTER, PACK_AX32, PACK_AXES_F16, PACK_COLOR_F16, PACK_RGBA8 = 1
 
 
 def expand_flags(config: RasterizeConfig) -> int:
-    """The kernel's flag word for a config.  Center packing needs the
+    """The kernels' flag word for a config.  Center packing needs the
     ellipse cull's survival bound, so it is off without alpha discard and
     quad clip (as in the TPU package)."""
     pack_center = config.pack_center_u32 and (config.alpha_discard > 0.0 or config.quad_clip)
@@ -53,15 +55,9 @@ def expand_flags(config: RasterizeConfig) -> int:
     )
 
 
-def prepare_table(proj, width: int, height: int, config: RasterizeConfig):
-    """Per-splat inputs of K2: ``(table (14, N) f32, bounds (N+1,) i32,
-    num_real () i32)``; splat ``i`` owns slots ``[bounds[i], bounds[i+1])``.
-
-    Table rows: cx, cy, a1x, a1y, a2x, a2y, r, g, b, opacity (0 for dead
-    splats), x0, y0, nx, depth key; with ``pack_axes_u32`` rows 2/3 hold the
-    axis codes ``theta*1024 + n1`` and ``n2`` and rows 4/5 are 0.  Dead
-    splats point at the sentinel tile (x0 = num_tiles).
-    """
+def prepare_table_plain(proj, width: int, height: int, config: RasterizeConfig):
+    """Plain PyTorch version of the per-splat pass: the same function as
+    :func:`prepare_table`, whole-tensor operations over the splats."""
     proj = quantize_view_fp16(proj, config)
     tiles_x, tiles_y = tile_grid(width, height, config)
     num_tiles = tiles_x * tiles_y
@@ -94,6 +90,74 @@ def prepare_table(proj, width: int, height: int, config: RasterizeConfig):
     # Dead-splat geometry can be NaN (behind-camera projections).
     table = torch.where(torch.isfinite(table), table, 0.0).contiguous()
     return table.detach(), bounds, num_real
+
+
+def _column(x, name: str, n: int, width: int | None, device):
+    """``(data_ptr, *strides)`` of one projected column, checked."""
+    want = (n,) if width is None else (n, width)
+    dtype = torch.bool if name == "valid" else torch.float32
+    if x.shape != want or x.dtype != dtype or x.device != device:
+        raise ValueError(f"proj.{name} must be {want} {dtype} on {device}, got {tuple(x.shape)} {x.dtype} "
+                         f"on {x.device}")
+    return x.data_ptr(), *x.stride()
+
+
+def scan_bounds(bounds):
+    """The run bounds from ``(0, slot counts...)``: one inclusive
+    ``torch.cumsum``, in place.  A library scan outside any kernel, as the
+    TPU package leaves its ``jnp.cumsum`` to XLA."""
+    return bounds.cumsum_(0)
+
+
+def prepare_table(proj, width: int, height: int, config: RasterizeConfig):
+    """Per-splat inputs of K2: ``(table (14, N) f32, bounds (N+1,) i32,
+    num_real () i32)``; splat ``i`` owns slots ``[bounds[i], bounds[i+1])``.
+
+    Table rows: cx, cy, a1x, a1y, a2x, a2y, r, g, b, opacity (0 for dead
+    splats), x0, y0, nx, depth key; with ``pack_axes_u32`` rows 2/3 hold the
+    axis codes ``theta*1024 + n1`` and ``n2`` and rows 4/5 are 0.  Dead
+    splats point at the sentinel tile (x0 = num_tiles).
+
+    Replaces the XLA prelude of the TPU package's ``bin_and_prepare``
+    (unitygaussiansplatting_tpu/ops/pair_expand.py:579-653).  One CUDA
+    thread per splat (``csrc/pair_table.cu``) reads the projection's columns
+    at their strides (views need no copy) and writes the table column, the
+    slot count into ``bounds[1 + i]`` and its block's real pairs into
+    ``num_real``; :func:`scan_bounds` then turns the counts into the run
+    bounds.  Bound on the H100 by bytes (45 read and 60 written per splat).
+    CPU tensors take :func:`prepare_table_plain`; CUDA tensors launch the
+    kernel.
+    """
+    dev = proj.depth.device
+    if dev.type == "cpu":
+        return prepare_table_plain(proj, width, height, config)
+    if dev.type != "cuda":
+        raise ValueError(f"prepare_table runs on CPU or CUDA tensors, got {dev}")
+    n = proj.depth.shape[0]
+    if proj.depth.dim() != 1 or n >= 2**31:
+        raise ValueError(f"proj.depth must be (N,) with N < 2^31, got {tuple(proj.depth.shape)}")
+    cols = [
+        *_column(proj.center, "center", n, 2, dev), *_column(proj.axis1, "axis1", n, 2, dev),
+        *_column(proj.axis2, "axis2", n, 2, dev), *_column(proj.color, "color", n, 3, dev),
+        *_column(proj.opacity, "opacity", n, None, dev), *_column(proj.depth, "depth", n, None, dev),
+        *_column(proj.valid, "valid", n, None, dev),
+    ]
+    tiles_x, tiles_y = tile_grid(width, height, config)
+    table = torch.empty((TABLE_ROWS, n), dtype=torch.float32, device=dev)
+    bounds = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    num_real = torch.zeros((), dtype=torch.int32, device=dev)
+    lib = cuda_build.library("pair_table")
+    status = lib.pair_table_launch(
+        *cols, n, tiles_x, tiles_y, config.tile_w, config.tile_h, depth_key_bits(tiles_x * tiles_y),
+        config.alpha_discard, expand_flags(config), table.data_ptr(), bounds.data_ptr(), num_real.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.check(lib, "pair_table", status, "prepare_table")
+    prepare_table.launches += 1
+    return table, scan_bounds(bounds), num_real
+
+
+prepare_table.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -234,10 +298,12 @@ def expand_pairs(table, bounds, k: int, width: int, height: int, config: Rasteri
     Returns ``(comp (k,) int64, fields (10, k) float32)`` in slot order; see
     ``csrc/pair_expand.cu`` for the layout.  Replaces the Pallas kernel
     ``_expand_kernel`` (unitygaussiansplatting_tpu/ops/pair_expand.py:90).
-    Bound on the H100 by bytes (~60 B per splat read, 48 B per slot
-    written); one thread per slot with a binary search of ``bounds``, so the
-    work is balanced and stores are coalesced.  CPU tensors take
-    :func:`expand_pairs_plain`; CUDA tensors launch the kernel.
+    Bound on the H100 by bytes (60 B per splat read, 48 B per slot
+    written).  A block of 256 threads walks 8 windows of 512 slots, two a
+    thread with coalesced 16- and 8-byte stores; the window's splats are
+    staged and derived once each in shared memory, and each slot does only
+    its tile's work.  CPU tensors take :func:`expand_pairs_plain`; CUDA
+    tensors launch the kernel.
     """
     if table.dim() != 2 or table.shape[0] != TABLE_ROWS or table.dtype != torch.float32:
         raise ValueError(f"table must be ({TABLE_ROWS}, N) float32, got {tuple(table.shape)} {table.dtype}")
@@ -279,8 +345,8 @@ def expand_probe_plain(k: int, device, keys_only: bool = False):
 
 def expand_probe(k: int, device, keys_only: bool = False):
     """K2's launch with none of its work: ``(comp (k,) int64, fields (10, k)
-    float32 or None)``, zeros written by one thread per slot in K2's launch
-    geometry, to all of K2's outputs or (``keys_only``) the keys alone.
+    float32 or None)``, zeros written in K2's launch geometry and store
+    widths, to all of K2's outputs or (``keys_only``) the keys alone.
 
     A measurement tool, on no path of the system: its time is K2's floor of
     launch + stores.  Replaces the no-op Pallas kernels of

@@ -40,7 +40,7 @@ class RasterizeConfig:
     # global multiples of chunk_size, so this is part of the function.
     chunk_size: int = 128
     # TPU expansion-kernel schedule knobs; the port's expansion kernel has
-    # one thread per slot and ignores both.
+    # its own fixed windows and ignores both.
     expand_chunk: int = 512
     expand_windows: int = 1
     # Work cap of the TPU package's XLA tile path (not ported yet).
