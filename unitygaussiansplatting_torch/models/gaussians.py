@@ -15,10 +15,16 @@ from ..ops import activations
 from ..ops.quaternion import normalize_swizzle_rotation
 
 
+def _move(value, device):
+    if isinstance(value, tuple):  # planar SH channels
+        return tuple(v.to(device) for v in value)
+    return value.to(device)
+
+
 def _to(obj, device):
     """Copy of a tensor dataclass with every field on ``device``."""
     return dataclasses.replace(
-        obj, **{f.name: getattr(obj, f.name).to(device) for f in dataclasses.fields(obj)}
+        obj, **{f.name: _move(getattr(obj, f.name), device) for f in dataclasses.fields(obj)}
     )
 
 
@@ -28,7 +34,8 @@ class Gaussians:
 
     means (N, 3) world positions; rotations (N, 4) normalized xyzw; scales
     (N, 3) linear; opacities (N,) in [0, 1]; base_color (N, 3) =
-    ``sh0 * SH_C0 + 0.5``; sh (N, 15, 3) band 1..3 coefficients.
+    ``sh0 * SH_C0 + 0.5``; sh (N, 15, 3) band 1..3 coefficients, or three
+    planar (N, 15) channels (``ops.sh.shade_sh`` takes either).
     """
 
     means: torch.Tensor
@@ -36,7 +43,7 @@ class Gaussians:
     scales: torch.Tensor
     opacities: torch.Tensor
     base_color: torch.Tensor
-    sh: torch.Tensor
+    sh: torch.Tensor | tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
     @property
     def num_splats(self) -> int:
@@ -60,6 +67,10 @@ class RawGaussians:
     opacity_logits: torch.Tensor
     sh0: torch.Tensor
     sh: torch.Tensor
+
+    @property
+    def num_splats(self) -> int:
+        return self.means.shape[0]
 
     def to(self, device) -> "RawGaussians":
         return _to(self, device)

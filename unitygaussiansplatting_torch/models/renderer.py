@@ -56,6 +56,18 @@ def check_overflow(stats: RenderStats, action: str = "warn") -> bool:
     return over
 
 
+def _decoded(gaussians, device, planar_sh: bool = False) -> Gaussians:
+    """``gaussians`` on ``device``; an ``io.device_asset.DeviceAsset``
+    (duck-typed on ``pos_q``, as the JAX package does) is moved there and
+    decoded from its quantized words, so that the frame holds no float copy
+    of the cloud between frames."""
+    if hasattr(gaussians, "pos_q"):
+        from ..io.device_asset import decode_device
+
+        return decode_device(gaussians.to(device), planar_sh=planar_sh, device=device)
+    return gaussians.to(device)
+
+
 def suggest_pair_multiplier(
     gaussians: Gaussians,
     cameras,
@@ -66,13 +78,14 @@ def suggest_pair_multiplier(
 ) -> tuple[float, int]:
     """Worst slot demand over ``cameras`` and a multiplier covering it times
     ``slack``: ``(multiplier, max_demand)``.  One N-sized pass per camera
-    (projection + tile rects), with the pipeline's own accounting."""
+    (projection + tile rects), with the pipeline's own accounting.
+    ``gaussians`` may be a ``DeviceAsset``."""
     if isinstance(cameras, Camera):
         cameras = [cameras]
     if not cameras:
         raise ValueError("suggest_pair_multiplier needs at least one camera")
     dev = resolve_device(device)
-    g = gaussians.to(dev)
+    g = _decoded(gaussians, dev)
     worst = 0
     with torch.no_grad():
         for cam in cameras:
@@ -116,6 +129,11 @@ def render_with_stats(
 ) -> tuple[torch.Tensor, RenderStats]:
     """Like :func:`render` but also returns :class:`RenderStats`.
 
+    ``gaussians`` may also be an ``io.device_asset.DeviceAsset``: it is
+    decoded on the device each frame (``config.decode_planar_sh`` keeps its
+    SH planar), the reference's per-frame ``LoadSplatData``
+    (GaussianSplatting.hlsl:428-608).
+
     ``center_probe`` is an (N, 2) zero tensor added to the projected splat
     centers: its gradient is the screen-space positional gradient (the 3DGS
     densification statistic).  ``want_visibility`` fills ``RenderStats.visible`` with the per-splat
@@ -124,7 +142,7 @@ def render_with_stats(
     if backend not in ("cuda", "reference"):
         raise ValueError(f"unknown backend {backend!r}")
     dev = resolve_device(device)
-    g = gaussians.to(dev)
+    g = _decoded(gaussians, dev, planar_sh=config.decode_planar_sh)
     camera = camera.to(dev)
     if model is not None:
         model = model.to(dev)

@@ -96,12 +96,20 @@ class GroupAdam:
             raise ValueError(f"every RawGaussians field needs a group with an lr: {labels}, {lrs}")
         self.labels, self.lrs, self.eps = dict(labels), dict(lrs), eps
 
-    def init(self, raw: RawGaussians) -> torch.optim.Adam:
-        """The optimizer over ``raw``'s tensors (leaves; set to require grad)."""
+    def init(self, raw: RawGaussians, like: torch.optim.Adam | None = None) -> torch.optim.Adam:
+        """The optimizer over ``raw``'s tensors (leaves; set to require grad).
+
+        Each group records its ``fields``.  ``like``, an optimizer this
+        ``GroupAdam`` made before, hands each group its update count and lr,
+        so that a schedule goes on where it was when the cloud's tensors are
+        replaced (``models.training_loop`` carries the moments across)."""
+        kept = {g["label"]: (g["count"], g["lr"]) for g in like.param_groups} if like is not None else {}
         groups = []
         for name, lr in self.lrs.items():
-            params = [getattr(raw, f).requires_grad_(True) for f in RAW_FIELDS if self.labels[f] == name]
-            groups.append(dict(params=params, lr=lr(0) if callable(lr) else lr, label=name, count=0))
+            fields = [f for f in RAW_FIELDS if self.labels[f] == name]
+            count, lr_now = kept.get(name, (0, lr(0) if callable(lr) else lr))
+            groups.append(dict(params=[getattr(raw, f).requires_grad_(True) for f in fields], fields=fields,
+                               lr=lr_now, label=name, count=count))
         return torch.optim.Adam(groups, eps=self.eps)
 
     def update(self, opt: torch.optim.Adam) -> None:

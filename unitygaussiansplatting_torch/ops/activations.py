@@ -34,3 +34,19 @@ def color_to_sh0(col: torch.Tensor) -> torch.Tensor:
 def linear_scale(log_scale: torch.Tensor) -> torch.Tensor:
     """Raw PLY log-scale -> linear scale (GaussianUtils.cs:20-23)."""
     return torch.abs(torch.exp(log_scale))
+
+
+def square_centered01(x: torch.Tensor) -> torch.Tensor:
+    """Opacity warp applied before chunk quantization (GaussianUtils.cs:25-30):
+    a signed square around 0.5, spending more precision near 0 and 1."""
+    x = x - 0.5
+    x = x * x * torch.sign(x)
+    return x * 2.0 + 0.5
+
+
+def inv_square_centered01(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`square_centered01` (GaussianSplatting.hlsl:5-11)."""
+    x = x - 0.5
+    x = x * 0.5
+    x = torch.sqrt(torch.abs(x)) * torch.sign(x)
+    return x + 0.5

@@ -1,7 +1,9 @@
 """Spherical-harmonics shading, degrees 0-3 (GaussianSplatting.hlsl:130-179).
 
-``sh`` is (..., 15, 3): bands 1..3 interleaved RGB.  The DC term is carried
-separately as the base color ``sh0 * SH_C0 + 0.5``.
+``sh`` is (..., 15, 3): bands 1..3 interleaved RGB, or a tuple of three
+planar (..., 15) channel tensors (what ``io.device_asset.decode_device``
+gives with ``planar_sh=True``).  The DC term is carried separately as the
+base color ``sh0 * SH_C0 + 0.5``.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ SH_C3 = (-0.5900436, 2.8906114, -0.4570458, 0.3731763, -0.4570458, 1.4453057, -0
 
 def shade_sh(
     base_color: torch.Tensor,
-    sh: torch.Tensor | None,
+    sh: torch.Tensor | tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None,
     view_dir: torch.Tensor,
     sh_order: int,
     only_sh: bool = False,
@@ -27,6 +29,8 @@ def shade_sh(
     """
     if not 0 <= sh_order <= 3:
         raise ValueError(f"sh_order must be in [0, 3], got {sh_order}")
+    if isinstance(sh, tuple):
+        return _shade_sh_planar(base_color, sh, view_dir, sh_order, only_sh)
     res = torch.full_like(base_color, 0.5) if only_sh else base_color
     if sh_order >= 1:
         if sh is None:
@@ -56,6 +60,41 @@ def shade_sh(
                     + (SH_C3[6] * x * (xx - 3 * yy)) * sh[..., 14, :]
                 )
     return torch.clamp(res, min=0.0)
+
+
+def _shade_sh_planar(base_color, sh_cols, view_dir, sh_order: int, only_sh: bool) -> torch.Tensor:
+    """:func:`shade_sh` on three planar (..., 15) channels, bit-identical to
+    the interleaved path: the same formulas in the same order of terms, one
+    stack at the end."""
+    x, y, z = view_dir[..., 0], view_dir[..., 1], view_dir[..., 2]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, yz, xz = x * y, y * z, x * z
+    out = []
+    for ch in range(3):
+        s = sh_cols[ch]
+        res = torch.full_like(x, 0.5) if only_sh else base_color[..., ch]
+        if sh_order >= 1:
+            res = res + SH_C1 * (-s[..., 0] * y + s[..., 1] * z - s[..., 2] * x)
+            if sh_order >= 2:
+                res = res + (
+                    (SH_C2[0] * xy) * s[..., 3]
+                    + (SH_C2[1] * yz) * s[..., 4]
+                    + (SH_C2[2] * (2 * zz - xx - yy)) * s[..., 5]
+                    + (SH_C2[3] * xz) * s[..., 6]
+                    + (SH_C2[4] * (xx - yy)) * s[..., 7]
+                )
+                if sh_order >= 3:
+                    res = res + (
+                        (SH_C3[0] * y * (3 * xx - yy)) * s[..., 8]
+                        + (SH_C3[1] * xy * z) * s[..., 9]
+                        + (SH_C3[2] * y * (4 * zz - xx - yy)) * s[..., 10]
+                        + (SH_C3[3] * z * (2 * zz - 3 * xx - 3 * yy)) * s[..., 11]
+                        + (SH_C3[4] * x * (4 * zz - xx - yy)) * s[..., 12]
+                        + (SH_C3[5] * z * (xx - yy)) * s[..., 13]
+                        + (SH_C3[6] * x * (xx - 3 * yy)) * s[..., 14]
+                    )
+        out.append(res)
+    return torch.clamp(torch.stack(out, dim=-1), min=0.0)
 
 
 def sh_basis(d: torch.Tensor) -> torch.Tensor:

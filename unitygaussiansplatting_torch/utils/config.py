@@ -45,7 +45,7 @@ class RasterizeConfig:
     expand_windows: int = 1
     # Work cap of the TPU package's XLA tile path (not ported yet).
     max_pairs_per_tile: int = 8192
-    # Planar SH decode of a DeviceAsset (not ported yet).
+    # Decode a DeviceAsset's SH as three planar (N, 15) channels.
     decode_planar_sh: bool = False
     # Stop compositing a tile once its max transmittance drops below this.
     transmittance_eps: float = 1e-4
