@@ -3,10 +3,10 @@ vs the JAX package.
 
 The same numpy splats through both packages' ``encode_asset``: every blob
 byte-identical, for the medium, high and very_high presets and for low with
-the JAX package's own k-means SH clustering passed in (the port has no
-k-means yet).  ``decode_asset``, the bridge to ``Gaussians`` and
-``morton_texel_index`` exact; a save/load round trip readable by both
-packages; BC7 (no codec in the port yet) raises.
+the JAX package's own k-means SH clustering passed in (the port's k-means
+draws from ``torch``: tests/test_torch_kmeans.py).  ``decode_asset``, the
+bridge to ``Gaussians`` and ``morton_texel_index`` exact; a save/load round trip readable by both
+packages; BC7 color byte-identical, each package decoding the other's.
 """
 
 import numpy as np
@@ -126,12 +126,15 @@ def test_square_centered01_matches_jax():
 
 
 def test_bc7_raises():
+    # BC7 color encodes and decodes as in the JAX package (both ways); only
+    # a cluster SH format without its palette raises.
     splats = make_splats(n=64, seed=1)
-    with pytest.raises(NotImplementedError, match="io/bc7"):
-        tas.encode_asset(splats, color_format=TF.ColorFormat.BC7)
-    jasset = jas.encode_asset(splats, color_format=JF.ColorFormat.BC7, bc7_mode7=False)
-    with pytest.raises(NotImplementedError, match="io/bc7"):
-        tas.decode_asset(jasset)
+    for mode7 in (False, True):
+        tasset = tas.encode_asset(splats, color_format=TF.ColorFormat.BC7, bc7_mode7=mode7)
+        jasset = jas.encode_asset(splats, color_format=JF.ColorFormat.BC7, bc7_mode7=mode7)
+        assert tasset.color_blob == jasset.color_blob and tasset.data_hash == jasset.data_hash
+        for f in SPLAT_FIELDS:
+            np.testing.assert_array_equal(getattr(tas.decode_asset(jasset), f), getattr(jas.decode_asset(tasset), f))
     with pytest.raises(ValueError, match="cluster"):
         tas.encode_asset(splats, sh_format=TF.SHFormat.Cluster4k)
     assert isinstance(tbr.input_splats_to_gaussians(tas.decode_asset(tas.encode_asset(splats)), device="cpu"),

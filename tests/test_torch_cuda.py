@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
-and one backward through ``render`` on the card against the CPU.  K2's
+one backward through ``render`` on the card against the CPU, and the import
+pipeline's device steps (the Morton order against its plain version, the
+k-means bit for bit across runs and near the CPU's).  K2's
 operands come from a per-splat kernel, and K2 runs in windows of slots; K1
 runs as clusters of CTAs and saves K3's checkpoints; K3 runs one block per
 segment from them.
@@ -378,3 +380,36 @@ def test_backward_on_card_matches_cpu(device, name):
         assert torch.isfinite(got).all(), f
         scale = float(want.abs().max())
         assert float((got - want).abs().max()) <= E2E_REL_TO_MAX[name] * scale, f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2_000_000, 4097])
+def test_morton_order_on_card_matches_plain(device, n):
+    import numpy as np
+
+    from unitygaussiansplatting_torch.ops import morton
+
+    rng = np.random.default_rng(n)
+    pos = (rng.normal(size=(n, 3)) * [4.0, 1.5, 4.0]).astype(np.float32)
+    pos[: n // 4] = pos[n // 4 : n // 2]  # repeated points: equal codes keep their input order
+    got = morton.morton_order(pos, device=device)
+    assert got.device.type == "cuda"
+    assert np.array_equal(got.cpu().numpy(), morton.morton_order_plain(pos))
+
+
+@pytest.mark.cuda
+def test_kmeans_on_card_is_deterministic_and_matches_cpu(device):
+    from unitygaussiansplatting_torch.io import kmeans
+
+    gen = torch.Generator().manual_seed(0)
+    data = 0.1 * torch.randn((60_000, 45), generator=gen)
+    draws = (torch.randint(0, 60_000, (3, 4096), generator=gen), torch.randint(0, 60_000, (4096,), generator=gen),
+             torch.randint(0, 60_000, (16, 8192), generator=gen))
+    runs = [kmeans.fit_kmeans_from_draws(data.to(device), *(d.to(device) for d in draws), k=4096, k_chunk=1024)
+            for _ in range(2)]
+    assert torch.equal(runs[0].view(torch.int32), runs[1].view(torch.int32))  # bit for bit
+    cpu = kmeans.fit_kmeans_from_draws(data, *draws, k=4096, k_chunk=1024)
+    assert float((runs[0].cpu() - cpu).abs().max()) <= 1e-4 * float(cpu.abs().max())
+    table, idx = kmeans.cluster_sh(data.reshape(-1, 15, 3), k=4096, iters=8, device=device)
+    again, idx_again = kmeans.cluster_sh(data.reshape(-1, 15, 3), k=4096, iters=8, device=device)
+    assert torch.equal(table, again) and torch.equal(idx, idx_again)

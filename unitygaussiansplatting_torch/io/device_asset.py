@@ -26,8 +26,8 @@ it into the signed range at the end.
 
 Layout against the reference: color texels are de-swizzled from the 16x16
 Morton texture layout once at upload and per-splat words are kept
-splat-major.  BC7 color needs a BC7 codec, which this package does not have
-yet.
+splat-major.  BC7 color is decoded on the host at upload (``io/bc7.py``) and
+held as Norm8x4 words.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ from ..ops.tile_common import true_div
 from ..utils.device import resolve_device
 from . import formats as F
 from .asset import GaussianSplatAssetData, morton_texel_index
+from .bc7 import decode_bc7
 
 _WORD_FIELDS = ("pos_q", "rot_q", "scale_q", "color_q", "sh_q", "sh_idx", "chunk_info")
 
@@ -149,7 +150,10 @@ def device_asset_from_asset(asset: GaussianSplatAssetData, device=None) -> Devic
         tex = np.frombuffer(asset.color_blob, "<f4").reshape(width * height, 4)
         color_q = tex[tix].astype(np.float32)
     elif asset.color_format == F.ColorFormat.BC7:
-        raise NotImplementedError("BC7 color needs a BC7 codec (io/bc7), which this package does not have yet")
+        # Blocks decoded on the host once; the device holds Norm8x4 words (4
+        # B a splat, as Norm8x4: BC7's size win is on disk here).
+        tex = decode_bc7(asset.color_blob, width, height).reshape(width * height, 4)
+        color_q = tex[tix].copy().view("<u4")[:, 0]
     else:
         raise NotImplementedError(asset.color_format)
 
@@ -260,7 +264,7 @@ def decode_device(da: DeviceAsset, planar_sh: bool = False, device=None) -> Gaus
     rot = unpack_smallest3(torch.stack(_bitfields(da.rot_q, (0, 10, 20, 30), (1023, 1023, 1023, 3)), dim=-1))
 
     cf = da.color_format
-    if cf == F.ColorFormat.Norm8x4:
+    if cf in (F.ColorFormat.Norm8x4, F.ColorFormat.BC7):  # BC7: Norm8x4 words since upload
         col_cols = _bitfields(da.color_q, (0, 8, 16, 24), (0xFF, 0xFF, 0xFF, 0xFF))
     elif cf == F.ColorFormat.Float16x4:
         r, g = _f16_pair_split(da.color_q[:, 0])
@@ -365,13 +369,13 @@ def encode_device(
     splat-major).  scale^(1/8) is taken in float64 and rounded to float32,
     which matches the JAX package's float32 power on all but a few values.
 
-    BC7 color and cluster SH need a host-side search / k-means and raise
-    ``NotImplementedError``.
+    BC7 color and cluster SH formats raise ``NotImplementedError``, as in
+    the JAX package: the host path (``io/creator.create_asset``) makes them.
     """
     if color_format == F.ColorFormat.BC7:
-        raise NotImplementedError("BC7 color needs a BC7 codec on the host (io/bc7)")
+        raise NotImplementedError("BC7 encode is host-side (io/asset.encode_asset)")
     if F.is_cluster_format(sh_format):
-        raise NotImplementedError("cluster SH needs a k-means clustering on the host (io/kmeans)")
+        raise NotImplementedError("cluster SH needs k-means (io/creator)")
 
     g = g.to(resolve_device(device))
     use_chunks = F.uses_chunks(pos_format, scale_format, color_format, sh_format)

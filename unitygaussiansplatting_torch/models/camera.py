@@ -72,6 +72,32 @@ class Camera:
             height=int(height),
         )
 
+    @staticmethod
+    def from_camera_info(info: dict, width: int, height: int, fov_y_deg: float | None = None) -> "Camera":
+        """Build a camera (on the CPU) from an imported cameras.json entry.
+
+        ``info`` is the dict stored in asset metadata by the creator
+        (io/creator.py load_json_cameras): position + the camera's world-space
+        basis axes in the reference's Unity convention (CameraInfo,
+        GaussianSplatAsset.cs:239-245 — x right, y up, axis_z pointing *away*
+        from the scene after the importer's y/z negation of the COLMAP view
+        matrix).  Our forward axis is the scene direction, i.e. -axis_z.
+        """
+        pos = np.asarray(info["pos"], np.float32)
+        ax = np.asarray(info["axis_x"], np.float32)
+        ay = np.asarray(info["axis_y"], np.float32)
+        az = np.asarray(info["axis_z"], np.float32)
+        rot = np.stack([ax, ay, -az], axis=0)  # world->view rows, +Z fwd, y up
+        view = np.eye(4, dtype=np.float32)
+        view[:3, :3] = rot
+        view[:3, 3] = -rot @ pos
+        return Camera(
+            view=torch.from_numpy(view),
+            fov_y=math.radians(fov_y_deg if fov_y_deg is not None else info.get("fov", 25.0)),
+            width=int(width),
+            height=int(height),
+        )
+
     def view_to_pixel(self, v: torch.Tensor) -> torch.Tensor:
         """(..., 3) view points -> (..., 2) pixel coords (y-down)."""
         z = v[..., 2]

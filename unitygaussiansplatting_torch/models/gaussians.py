@@ -12,7 +12,7 @@ import dataclasses
 import torch
 
 from ..ops import activations
-from ..ops.quaternion import normalize_swizzle_rotation
+from ..ops.quaternion import normalize_swizzle_rotation, quat_normalize
 
 
 def _move(value, device):
@@ -85,3 +85,21 @@ class RawGaussians:
             base_color=activations.sh0_to_color(self.sh0),
             sh=self.sh,
         )
+
+
+def deactivate(g: Gaussians) -> RawGaussians:
+    """Inverse of :meth:`RawGaussians.activate`, used by PLY export.
+
+    Mirrors the export kernel's inverse activations
+    (SplatUtilities.compute:616-673: InvSigmoid, log scale, color -> SH0).
+    """
+    q = quat_normalize(g.rotations)
+    wxyz = torch.cat([q[..., 3:4], q[..., 0:3]], dim=-1)
+    return RawGaussians(
+        means=g.means,
+        rotations_wxyz=wxyz,
+        log_scales=torch.log(torch.clamp(g.scales, min=1e-37)),
+        opacity_logits=activations.inv_sigmoid(g.opacities),
+        sh0=activations.color_to_sh0(g.base_color),
+        sh=g.sh,
+    )

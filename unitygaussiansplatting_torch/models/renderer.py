@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import composite as composite_ops
 from ..ops.binning import pair_budget, slot_demand, tile_rects
 from ..ops.projection import project_splats
 from ..ops.rasterize_cuda import rasterize
@@ -164,3 +165,23 @@ def render_with_stats(
     budget = pair_budget(proj.depth.shape[0], config)
     img, num_pairs = rasterize(proj, w, h, config)
     return img, RenderStats(num_pairs, budget, num_pairs > budget, visible)
+
+
+def render_over_background(
+    gaussians: Gaussians,
+    camera: Camera,
+    background,
+    settings: RenderSettings = RenderSettings(),
+    config: RasterizeConfig = RasterizeConfig(),
+    backend: str = "cuda",
+    convert_gamma: bool = False,
+    device=None,
+) -> torch.Tensor:
+    """Full frame: splat RT composited over a background color/image.
+
+    Mirrors GaussianSplatRenderSystem.OnPreCullCamera's RT + composite pass
+    (GaussianSplatRenderer.cs:187-211).  ``gaussians`` may be a
+    ``DeviceAsset``; runs on ``device`` (CUDA unless told otherwise).
+    """
+    rt = render(gaussians, camera, settings, config, backend, device=device)
+    return composite_ops.composite_over(rt, background, convert_gamma=convert_gamma)
