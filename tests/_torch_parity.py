@@ -8,6 +8,7 @@ import dataclasses
 
 import numpy as np
 
+from unitygaussiansplatting_torch.models.gaussians import Gaussians as TorchGaussians
 from unitygaussiansplatting_torch.ops.projection import ProjectedSplats as TorchProjected
 from unitygaussiansplatting_torch.utils import config as tcfg
 from unitygaussiansplatting_torch.utils.convert import camera_from_numpy, raw_gaussians_from_numpy
@@ -61,6 +62,12 @@ def jax_scene(n=SCENE_N, seed=SCENE_SEED):
 
 def port_scene(raw):
     return raw_gaussians_from_numpy(raw_arrays(raw))
+
+
+def port_cloud(jg):
+    """The port's Gaussians holding a JAX ``Gaussians``' values (both packages
+    then start from the same activated cloud)."""
+    return TorchGaussians(**{f.name: torch.from_numpy(np.array(getattr(jg, f.name))) for f in dataclasses.fields(jg)})
 
 
 def cameras(width=WIDTH, height=HEIGHT):

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
 one backward through ``render`` on the card against the CPU, and the import
 pipeline's device steps (the Morton order against its plain version, the
-k-means bit for bit across runs and near the CPU's).  K2's
+k-means bit for bit across runs and near the CPU's), and the debug point
+modes on the card equal to the CPU's.  K2's
 operands come from a per-splat kernel, and K2 runs in windows of slots; K1
 runs as clusters of CTAs and saves K3's checkpoints; K3 runs one block per
 segment from them.
@@ -413,3 +414,21 @@ def test_kmeans_on_card_is_deterministic_and_matches_cpu(device):
     table, idx = kmeans.cluster_sh(data.reshape(-1, 15, 3), k=4096, iters=8, device=device)
     again, idx_again = kmeans.cluster_sh(data.reshape(-1, 15, 3), k=4096, iters=8, device=device)
     assert torch.equal(table, again) and torch.equal(idx, idx_again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["points", "points-by-index", "chunk-bounds"])
+def test_debug_points_on_card_equal_cpu(device, mode):
+    # The goldens' scene and camera; the cloud activated on the host, so that
+    # both devices start from the same values.  The scatter's winner per
+    # pixel is explicit, so the card's image is the CPU's bit for bit.
+    from unitygaussiansplatting_torch.models import debug_render as dr
+
+    g = sphere_scene(n=2000, seed=0).activate()
+    cam = Camera.look_at([0, 0.5, -3.0], [0, 0, 0], [0, 1, 0], 45.0, 256, 160)
+    fn, kw = {"points": (dr.render_debug_points, {}), "points-by-index": (dr.render_debug_points, dict(by_index=True)),
+              "chunk-bounds": (dr.render_debug_chunk_bounds, dict(chunk_size=64))}[mode]
+    want = fn(g, cam, device="cpu", **kw)
+    got = fn(g, cam, device=device, **kw)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)

@@ -3,21 +3,51 @@
 The JAX package ``unitygaussiansplatting_tpu`` is the reference; this package
 imports nothing from it.  Hand-written CUDA kernels live in ``csrc/`` and are
 built by ``nvcc`` at first use (``ops/cuda_build.py``).
+
+Quick start (on the card; pass ``device="cpu"`` to run the kernels' plain
+versions on the CPU)::
+
+    from unitygaussiansplatting_torch import Camera, render
+    from unitygaussiansplatting_torch.io.creator import create_asset
+    from unitygaussiansplatting_torch.io.asset import decode_asset
+    from unitygaussiansplatting_torch.io.bridge import input_splats_to_gaussians
+
+    asset = create_asset("scene.ply", quality="medium")
+    cloud = input_splats_to_gaussians(decode_asset(asset))
+    cam = Camera.look_at([0, 0, -3], [0, 0, 0], [0, 1, 0], 45, 1200, 797)
+    image = render(cloud, cam)  # (H, W, 4) premultiplied RGBA on the card
 """
 
 from .models.camera import Camera
-from .models.gaussians import Gaussians, RawGaussians
-from .models.renderer import RenderStats, check_overflow, render, render_with_stats
+from .models.gaussians import Gaussians, RawGaussians, deactivate
+from .models.renderer import (
+    GaussianSplatRenderer,
+    RenderStats,
+    check_overflow,
+    render,
+    render_multi,
+    render_over_background,
+    render_with_stats,
+    suggest_pair_multiplier,
+)
 from .utils.config import RasterizeConfig, RenderSettings
+
+__version__ = "0.1.0"
 
 __all__ = [
     "Camera",
     "Gaussians",
     "RawGaussians",
-    "RasterizeConfig",
-    "RenderSettings",
+    "deactivate",
+    "GaussianSplatRenderer",
     "RenderStats",
     "check_overflow",
     "render",
+    "render_multi",
+    "render_over_background",
     "render_with_stats",
+    "suggest_pair_multiplier",
+    "RasterizeConfig",
+    "RenderSettings",
+    "__version__",
 ]

@@ -13,6 +13,8 @@ import math
 import numpy as np
 import torch
 
+from ..ops.projection import affine
+
 
 @dataclasses.dataclass(frozen=True)
 class Camera:
@@ -39,6 +41,11 @@ class Camera:
     def focal(self) -> float:
         """Pixel focal length (GaussianSplatting.hlsl:70)."""
         return self.width / (2.0 * self.tan_fovx)
+
+    @property
+    def rotation(self) -> torch.Tensor:
+        """(3, 3) world->view rotation block."""
+        return self.view[:3, :3]
 
     @property
     def position(self) -> torch.Tensor:
@@ -97,6 +104,11 @@ class Camera:
             width=int(width),
             height=int(height),
         )
+
+    def world_to_view(self, p: torch.Tensor) -> torch.Tensor:
+        """(..., 3) world points -> view space, ``p @ R^T + t`` written out
+        per component (``ops.projection.affine``), as the projection does."""
+        return affine(p, self.view)
 
     def view_to_pixel(self, v: torch.Tensor) -> torch.Tensor:
         """(..., 3) view points -> (..., 2) pixel coords (y-down)."""

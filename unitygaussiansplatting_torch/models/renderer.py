@@ -11,10 +11,12 @@ Backends with identical semantics:
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from ..ops import composite as composite_ops
 from ..ops.binning import pair_budget, slot_demand, tile_rects
@@ -65,7 +67,8 @@ def _decoded(gaussians, device, planar_sh: bool = False) -> Gaussians:
     if hasattr(gaussians, "pos_q"):
         from ..io.device_asset import decode_device
 
-        return decode_device(gaussians.to(device), planar_sh=planar_sh, device=device)
+        with record_function("splat_decode"):
+            return decode_device(gaussians.to(device), planar_sh=planar_sh, device=device)
     return gaussians.to(device)
 
 
@@ -75,22 +78,26 @@ def suggest_pair_multiplier(
     settings: RenderSettings = RenderSettings(),
     config: RasterizeConfig = RasterizeConfig(),
     slack: float = 1.2,
+    model: torch.Tensor | None = None,
     device=None,
 ) -> tuple[float, int]:
     """Worst slot demand over ``cameras`` and a multiplier covering it times
     ``slack``: ``(multiplier, max_demand)``.  One N-sized pass per camera
     (projection + tile rects), with the pipeline's own accounting.
-    ``gaussians`` may be a ``DeviceAsset``."""
+    ``gaussians`` may be a ``DeviceAsset``; ``model`` is the object->world
+    matrix the frames will render it with."""
     if isinstance(cameras, Camera):
         cameras = [cameras]
     if not cameras:
         raise ValueError("suggest_pair_multiplier needs at least one camera")
     dev = resolve_device(device)
     g = _decoded(gaussians, dev)
+    if model is not None:
+        model = model.to(dev)
     worst = 0
     with torch.no_grad():
         for cam in cameras:
-            proj = quantize_view_fp16(project_splats(g, cam.to(dev), settings), config)
+            proj = quantize_view_fp16(project_splats(g, cam.to(dev), settings, model=model), config)
             worst = max(worst, int(slot_demand(proj, cam.width, cam.height, config)))
     return (worst * slack) / max(g.num_splats, 1), worst
 
@@ -139,6 +146,10 @@ def render_with_stats(
     centers: its gradient is the screen-space positional gradient (the 3DGS
     densification statistic).  ``want_visibility`` fills ``RenderStats.visible`` with the per-splat
     "non-empty on-screen tile rect" mask (the 3DGS ``radii > 0`` filter).
+
+    The stages carry ``torch.profiler`` ranges, the JAX package's named
+    scopes: ``splat_decode``, ``splat_project``, ``splat_rasterize_cuda``
+    and, inside it, ``splat_bin`` (``ops/rasterize_cuda.py``).
     """
     if backend not in ("cuda", "reference"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -149,7 +160,8 @@ def render_with_stats(
         model = model.to(dev)
     if kill_mask is not None:
         kill_mask = kill_mask.to(dev)
-    proj = project_splats(g, camera, settings, model=model, kill_mask=kill_mask)
+    with record_function("splat_project"):
+        proj = project_splats(g, camera, settings, model=model, kill_mask=kill_mask)
     if center_probe is not None:
         proj = proj._replace(center=proj.center + center_probe.to(dev))
     w, h = camera.width, camera.height
@@ -163,7 +175,8 @@ def render_with_stats(
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         return img, RenderStats(zero, 0, zero < 0, visible)
     budget = pair_budget(proj.depth.shape[0], config)
-    img, num_pairs = rasterize(proj, w, h, config)
+    with record_function("splat_rasterize_cuda"):
+        img, num_pairs = rasterize(proj, w, h, config)
     return img, RenderStats(num_pairs, budget, num_pairs > budget, visible)
 
 
@@ -185,3 +198,63 @@ def render_over_background(
     """
     rt = render(gaussians, camera, settings, config, backend, device=device)
     return composite_ops.composite_over(rt, background, convert_gamma=convert_gamma)
+
+
+def render_multi(
+    clouds: list[Gaussians],
+    camera: Camera,
+    settings_list: list[RenderSettings] | None = None,
+    config: RasterizeConfig = RasterizeConfig(),
+    backend: str = "cuda",
+    render_order: list[float] | None = None,
+    models: list | None = None,
+    device=None,
+) -> torch.Tensor:
+    """Render several splat objects into one frame; (H, W, 4) premultiplied.
+
+    GaussianSplatRenderSystem.GatherSplatsForCamera + SortAndRenderSplats
+    (GaussianSplatRenderer.cs:73-169): objects are ordered by explicit render
+    order (higher in front), then by the view depth of their origin (nearest
+    first), then by index; each object is depth-sorted on its own, and the
+    objects composite front to back into one target ("under" blending).
+    Splats of different objects do not interleave in depth, as in the
+    reference.  The origins' depths are one host read a frame.  The backend
+    defaults to ``"cuda"``; the JAX package's default, its XLA tile path,
+    has no port yet.  Runs on ``device`` (CUDA unless told otherwise).
+    """
+    dev = resolve_device(device)
+    camera = camera.to(dev)
+    n = len(clouds)
+    settings_list = settings_list or [RenderSettings()] * n
+    models = [None if m is None else torch.as_tensor(m, dtype=torch.float32).to(dev) for m in (models or [None] * n)]
+    origins = torch.zeros((n, 3), device=dev)
+    for i, m in enumerate(models):
+        if m is not None:
+            origins[i] = m[:3, 3]
+    depths = camera.world_to_view(origins)[:, 2].tolist()
+    explicit = render_order or [0.0] * n
+    order = sorted((-explicit[i], depths[i], i) for i in range(n))
+
+    accum = torch.zeros((camera.height, camera.width, 4), dtype=torch.float32, device=dev)
+    for _, _, i in order:
+        rt = render(clouds[i], camera, settings_list[i], config, backend, model=models[i], device=dev)
+        accum = accum + (1.0 - accum[..., 3:4]) * rt  # new content goes behind what is drawn
+    return accum
+
+
+@dataclasses.dataclass
+class GaussianSplatRenderer:
+    """Stateful wrapper mirroring the reference's component API: a cloud plus
+    its display settings (GaussianSplatRenderer.cs:215-251).  The functional
+    :func:`render` is the primary API; this class serves interactive and
+    driver use.  ``backend`` defaults to ``"cuda"`` (see
+    :func:`render_multi`)."""
+
+    gaussians: Gaussians
+    settings: RenderSettings = RenderSettings()
+    config: RasterizeConfig = RasterizeConfig()
+    backend: str = "cuda"
+    device: object = None
+
+    def render_frame(self, camera: Camera) -> torch.Tensor:
+        return render(self.gaussians, camera, self.settings, self.config, self.backend, device=self.device)

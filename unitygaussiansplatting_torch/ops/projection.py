@@ -36,7 +36,7 @@ class ProjectedSplats(NamedTuple):
     valid: torch.Tensor  # (N,) bool: in front of camera and not killed
 
 
-def _affine(p: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+def affine(p: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """``p @ m[:3, :3].T + m[:3, 3]`` written out per component.
 
     Three products and a sum per output, in index order: no matrix product,
@@ -64,14 +64,14 @@ def project_splats(
     view = camera.view
     if model is not None:
         mv = view @ model
-        means_world = _affine(g.means, model)
+        means_world = affine(g.means, model)
         inv_model_rot = torch.linalg.inv(model[:3, :3])
     else:
         mv = view
         means_world = g.means
         inv_model_rot = None
 
-    view_pos = _affine(g.means, mv)
+    view_pos = affine(g.means, mv)
     depth = view_pos[..., 2]
     valid = depth > 1e-8
     if kill_mask is not None:

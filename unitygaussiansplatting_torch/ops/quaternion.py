@@ -22,6 +22,37 @@ def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return q / norm
 
 
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a*b of xyzw quaternions (GaussianSplatting.hlsl:19-22)."""
+    ax, ay, az, aw = a.unbind(-1)
+    bx, by, bz, bw = b.unbind(-1)
+    return torch.stack(
+        [
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by + ay * bw + az * bx - ax * bz,
+            aw * bz + az * bw + ax * by - ay * bx,
+            aw * bw - ax * bx - ay * by - az * bz,
+        ],
+        dim=-1,
+    )
+
+
+def quat_inverse(q: torch.Tensor) -> torch.Tensor:
+    """Inverse (conjugate / |q|^2) of xyzw quaternions (hlsl:24-27)."""
+    norm2 = torch.sum(q * q, dim=-1, keepdim=True)
+    conj = q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype, device=q.device)
+    return conj / norm2
+
+
+def quat_rotate_vector(v: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Rotate 3-vectors by xyzw quaternions (hlsl:13-17); leading dims
+    broadcast."""
+    qv, v = torch.broadcast_tensors(q[..., :3], v)
+    w = q[..., 3:4]
+    t = 2.0 * torch.linalg.cross(qv, v, dim=-1)
+    return v + w * t + torch.linalg.cross(qv, t, dim=-1)
+
+
 def normalize_swizzle_rotation(wxyz: torch.Tensor) -> torch.Tensor:
     """PLY-order (w, x, y, z) -> normalized (x, y, z, w) (GaussianUtils.cs:40-43)."""
     q = quat_normalize(wxyz)

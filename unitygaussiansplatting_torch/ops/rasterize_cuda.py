@@ -16,6 +16,7 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.profiler import record_function
 
 from ..utils.config import RasterizeConfig
 from . import cuda_build
@@ -220,7 +221,8 @@ class Rasterize(torch.autograd.Function):
     def forward(ctx, center, axis1, axis2, color, opacity, depth, valid, conic, width, height, config,
                 need_grad):
         proj = ProjectedSplats(depth, center, axis1, axis2, conic, color, opacity, valid)
-        binning, fields, _ = bin_and_prepare(proj, width, height, config)
+        with record_function("splat_bin"):
+            binning, fields, _ = bin_and_prepare(proj, width, height, config)
         ctx.mark_non_differentiable(binning.num_pairs)
         if not need_grad:
             raw, _, _ = composite_tiles(fields, binning.tile_starts, width, height, config)

@@ -8,11 +8,17 @@ base color ``sh0 * SH_C0 + 0.5``.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 SH_C1 = 0.4886025
 SH_C2 = (1.0925484, -1.0925484, 0.3153916, -1.0925484, 0.5462742)
 SH_C3 = (-0.5900436, 2.8906114, -0.4570458, 0.3731763, -0.4570458, 1.4453057, -0.5900436)
+
+# Coefficient index ranges of bands 1..3 within the 15-coefficient layout.
+BAND_SLICES = (slice(0, 3), slice(3, 8), slice(8, 15))
 
 
 def shade_sh(
@@ -126,3 +132,58 @@ def sh_basis(d: torch.Tensor) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+# Fixed, well-conditioned sample directions at which each band's rotation
+# matrix is fitted (enough to invert each band's basis); the JAX package's
+# ``ops/sh.py:_SAMPLE_DIRS``.
+_SAMPLE_DIRS = np.array(
+    [
+        [1.0, 0.0, 0.0],
+        [0.0, 1.0, 0.0],
+        [0.0, 0.0, 1.0],
+        [1.0, 1.0, 0.0],
+        [1.0, 0.0, 1.0],
+        [0.0, 1.0, 1.0],
+        [1.0, 1.0, 1.0],
+        [1.0, -1.0, 0.0],
+        [0.3, -0.8, 0.5],
+        [-0.7, 0.2, 0.6],
+        [0.9, 0.3, -0.4],
+        [-0.2, -0.5, -0.8],
+        [0.5, 0.9, -0.1],
+        [-0.9, -0.3, 0.2],
+        [0.1, 0.6, 0.9],
+    ],
+    dtype=np.float64,
+)
+_SAMPLE_DIRS /= np.linalg.norm(_SAMPLE_DIRS, axis=1, keepdims=True)
+
+
+@functools.cache
+def _band_pinv() -> tuple[np.ndarray, ...]:
+    """Per band, the pseudo-inverse of its basis at the sample directions:
+    the basis evaluated in float32 (as every shading call does), then the
+    pinv in float64 on the host."""
+    basis = sh_basis(torch.from_numpy(_SAMPLE_DIRS.astype(np.float32))).double().numpy()
+    return tuple(np.linalg.pinv(basis[:, sl]) for sl in BAND_SLICES)
+
+
+def rotate_sh(sh: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
+    """Rotate SH coefficients (..., 15, 3) by a (3, 3) rotation matrix.
+
+    The reference's RotateSH (SphericalHarmonics.hlsl:24-210, used by the
+    export bake, SplatUtilities.compute:549-609), built by projection: per
+    band, the matrix that makes shading the rotated coefficients at d equal
+    shading the originals at R^-1 d, fitted at fixed sample directions.
+    Exact for band-limited functions.  Runs on ``sh``'s device.
+    """
+    dev = sh.device
+    dirs = torch.from_numpy(_SAMPLE_DIRS.astype(np.float32)).to(dev)
+    # R^-1 d_i = R^T d_i = d_i @ R (rows are directions).
+    basis_rot = sh_basis(dirs @ torch.as_tensor(rot, dtype=torch.float32).to(dev))  # (S, 15)
+    out = []
+    for pinv, sl in zip(_band_pinv(), BAND_SLICES):
+        m = torch.from_numpy(pinv.astype(np.float32)).to(dev) @ basis_rot[:, sl]  # (2l+1, 2l+1)
+        out.append(torch.einsum("mk,...kc->...mc", m, sh[..., sl, :]))
+    return torch.cat(out, dim=-2)
