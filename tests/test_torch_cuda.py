@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
 one backward through ``render`` on the card against the CPU, and the import
 pipeline's device steps (the Morton order against its plain version, the
-k-means bit for bit across runs and near the CPU's), and the debug point
-modes on the card equal to the CPU's.  K2's
+k-means bit for bit across runs and near the CPU's), the debug point
+modes on the card equal to the CPU's, the tile path (``backend="torch"``)
+on the card against the CPU, and strips on a world of one NCCL rank.  K2's
 operands come from a per-splat kernel, and K2 runs in windows of slots; K1
 runs as clusters of CTAs and saves K3's checkpoints; K3 runs one block per
 segment from them.
@@ -432,3 +433,49 @@ def test_debug_points_on_card_equal_cpu(device, mode):
     got = fn(g, cam, device=device, **kw)
     assert got.device.type == "cuda"
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["default", "small-tiles", "overflow"])
+def test_bin_splats_on_card_equals_cpu(device, name):
+    from unitygaussiansplatting_torch.ops.binning import bin_splats
+
+    cfg = RasterizeConfig(**{"default": {}, "small-tiles": CONFIGS["small-tiles"],
+                             "overflow": dict(pair_multiplier=0.5)}[name])
+    g = sphere_scene(n=1500, seed=0).activate()
+    cam = Camera.look_at([0, 0.5, -3.0], [0, 0, 0], [0, 1, 0], 45.0, WIDTH, HEIGHT)
+    proj = project_splats(g, cam)
+    want = bin_splats(proj, WIDTH, HEIGHT, cfg)
+    got = bin_splats(ProjectedSplats(*(x.to(device) for x in proj)), WIDTH, HEIGHT, cfg)
+    for field in ("pair_rank", "pair_tile", "depth_order", "rank_counts", "tile_starts", "num_pairs"):
+        assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), field
+
+
+@pytest.mark.cuda
+def test_render_torch_backend_on_card_matches_cpu(device):
+    g = sphere_scene(n=1500, seed=0).activate()
+    cam = Camera.look_at([0, 0.5, -3.0], [0, 0, 0], [0, 1, 0], 45.0, WIDTH, HEIGHT)
+    want = render(g, cam, backend="torch", device="cpu")
+    got = render(g, cam, backend="torch", device=device).cpu()
+    assert float((got - want).abs().max()) <= K1_ATOL
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_one_strips_equal_render(device):
+    import torch.distributed as dist
+
+    from unitygaussiansplatting_torch import parallel
+    from unitygaussiansplatting_torch.parallel.strips import render_strips_fn
+
+    g = sphere_scene(n=1500, seed=0).to(device).activate()
+    cam = Camera.look_at([0, 0.5, -3.0], [0, 0, 0], [0, 1, 0], 45.0, WIDTH, HEIGHT).to(device)
+    parallel.initialize()
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        mesh = parallel.make_pod_mesh()
+        for backend in ("cuda", "torch"):
+            # One rank: the strip is the whole frame (128 rows, 4 tiles of 32).
+            strips = render_strips_fn(mesh, cam, backend=backend)(g)
+            assert torch.equal(strips, render(g, cam, backend=backend)), backend
+    finally:
+        dist.destroy_process_group()

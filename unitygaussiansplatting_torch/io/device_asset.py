@@ -40,6 +40,7 @@ import torch.nn.functional as nnf
 
 from ..models.gaussians import Gaussians
 from ..ops.activations import square_centered01
+from ..ops.packing import as_i16, as_i32
 from ..ops.quaternion import pack_smallest3, unpack_smallest3
 from ..ops.tile_common import true_div
 from ..utils.device import resolve_device
@@ -330,23 +331,13 @@ def _enc(x: torch.Tensor, maxv: int) -> torch.Tensor:
     return torch.clamp(x * (maxv + 0.5), 0.0, float(maxv)).to(torch.int64)
 
 
-def _as_i32(v: torch.Tensor) -> torch.Tensor:
-    """u32 values (int64, 0 .. 2^32 - 1) -> the int32 with the same bits."""
-    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
-
-
-def _as_i16(v: torch.Tensor) -> torch.Tensor:
-    """u16 values (0 .. 65535) -> the int16 with the same bits."""
-    return (((v + 0x8000) & 0xFFFF) - 0x8000).to(torch.int16)
-
-
 def _f16_bits(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float16).view(torch.int16).to(torch.int64) & 0xFFFF
 
 
 def _f16_pair(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     """Two float32 tensors -> i32 words of their float16 bits (lo | hi << 16)."""
-    return _as_i32(_f16_bits(lo) | (_f16_bits(hi) << 16))
+    return as_i32(_f16_bits(lo) | (_f16_bits(hi) << 16))
 
 
 @torch.no_grad()
@@ -386,7 +377,7 @@ def encode_device(
     opacity = g.opacities.to(torch.float32)
     sh = g.sh.to(torch.float32)
     rot01 = torch.clamp(pack_smallest3(g.rotations.to(torch.float32)), 0.0, 1.0)
-    rot_q = _as_i32(
+    rot_q = as_i32(
         _enc(rot01[:, 0], 1023) | (_enc(rot01[:, 1], 1023) << 10) | (_enc(rot01[:, 2], 1023) << 20)
         | (_enc(rot01[:, 3], 3) << 30)
     )
@@ -453,11 +444,11 @@ def encode_device(
         if fmt == F.VectorFormat.Float32:
             return v01.to(torch.float32)
         if fmt == F.VectorFormat.Norm16:
-            return _as_i16(torch.clamp(v01c * 65535.5, 0, 65535).to(torch.int64))
+            return as_i16(torch.clamp(v01c * 65535.5, 0, 65535).to(torch.int64))
         if fmt == F.VectorFormat.Norm11:
-            return _as_i32(_enc(v01c[:, 0], 2047) | (_enc(v01c[:, 1], 1023) << 11) | (_enc(v01c[:, 2], 2047) << 21))
+            return as_i32(_enc(v01c[:, 0], 2047) | (_enc(v01c[:, 1], 1023) << 11) | (_enc(v01c[:, 2], 2047) << 21))
         if fmt == F.VectorFormat.Norm6:
-            return _as_i16(_enc(v01c[:, 0], 63) | (_enc(v01c[:, 1], 31) << 6) | (_enc(v01c[:, 2], 31) << 11))
+            return as_i16(_enc(v01c[:, 0], 63) | (_enc(v01c[:, 1], 31) << 6) | (_enc(v01c[:, 2], 31) << 11))
         raise ValueError(fmt)
 
     pos_q = vector_words(pos, pos_format)
@@ -466,7 +457,7 @@ def encode_device(
     col4 = torch.clamp(torch.cat([color, opacity[:, None]], dim=-1), 0.0, 1.0)
     if color_format == F.ColorFormat.Norm8x4:
         codes = torch.clamp(col4 * 255.5, 0, 255).to(torch.int64)
-        color_q = _as_i32(codes[:, 0] | (codes[:, 1] << 8) | (codes[:, 2] << 16) | (codes[:, 3] << 24))
+        color_q = as_i32(codes[:, 0] | (codes[:, 1] << 8) | (codes[:, 2] << 16) | (codes[:, 3] << 24))
     elif color_format == F.ColorFormat.Float16x4:
         color_q = torch.stack([_f16_pair(col4[:, 0], col4[:, 1]), _f16_pair(col4[:, 2], col4[:, 3])], dim=-1)
     elif color_format == F.ColorFormat.Float32x4:
@@ -481,10 +472,10 @@ def encode_device(
         sh_q = _f16_pair(sh48[:, 0::2], sh48[:, 1::2])
     elif sh_format == F.SHFormat.Norm11:
         s = torch.clamp(sh.reshape(n, 15, 3), 0.0, 1.0)
-        sh_q = _as_i32(_enc(s[..., 0], 2047) | (_enc(s[..., 1], 1023) << 11) | (_enc(s[..., 2], 2047) << 21))
+        sh_q = as_i32(_enc(s[..., 0], 2047) | (_enc(s[..., 1], 1023) << 11) | (_enc(s[..., 2], 2047) << 21))
     elif sh_format == F.SHFormat.Norm6:
         s = torch.clamp(sh.reshape(n, 15, 3), 0.0, 1.0)
-        sh_q = _as_i16(_enc(s[..., 0], 31) | (_enc(s[..., 1], 63) << 5) | (_enc(s[..., 2], 31) << 11))
+        sh_q = as_i16(_enc(s[..., 0], 31) | (_enc(s[..., 1], 63) << 5) | (_enc(s[..., 2], 31) << 11))
     else:
         raise ValueError(sh_format)
 

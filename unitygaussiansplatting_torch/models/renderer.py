@@ -5,6 +5,10 @@ Backends with identical semantics:
 - ``backend="cuda"`` (default): the fused tile pipeline; on a CUDA device the
   hand-written kernels, on the CPU their plain PyTorch versions.  Its
   backward is the hand-written one (K3 + K4).
+- ``backend="torch"``: the tile path in plain PyTorch (the JAX package's
+  ``"jax"`` backend, its default): depth-major binning and chunked
+  compositing, differentiated by autograd.  Memory grows with the frame:
+  test-sized images, or frames without a gradient.
 - ``backend="reference"``: the O(N*H*W) oracle (small scenes), differentiated
   by autograd.
 """
@@ -19,10 +23,11 @@ import torch
 from torch.profiler import record_function
 
 from ..ops import composite as composite_ops
-from ..ops.binning import pair_budget, slot_demand, tile_rects
+from ..ops.binning import bin_splats, pair_budget, slot_demand, tile_rects
 from ..ops.projection import project_splats
 from ..ops.rasterize_cuda import rasterize
 from ..ops.rasterize_ref import rasterize_reference
+from ..ops.rasterize_tiles import rasterize_tiles_torch
 from ..ops.tile_common import quantize_view_fp16
 from ..utils.config import RasterizeConfig, RenderSettings
 from ..utils.device import resolve_device
@@ -33,12 +38,13 @@ from .gaussians import Gaussians
 class RenderStats(NamedTuple):
     """Per-frame counters beside the image.
 
-    ``num_pairs`` is the true (splat, tile) slot demand; above ``budget``
-    pairs were dropped splat-major and the frame is missing content: raise
-    ``config.pair_multiplier``.
+    ``num_pairs`` is the true (splat, tile) pair demand (with ``"cuda"``
+    also one sentinel slot per dead splat); above ``budget`` pairs were
+    dropped and the frame is missing content (depth-major on the ``"torch"``
+    backend, splat-id-major on ``"cuda"``): raise ``config.pair_multiplier``.
     """
 
-    num_pairs: torch.Tensor  # () int32 slot demand this frame
+    num_pairs: torch.Tensor  # () int32 pair demand this frame
     budget: int  # static pair capacity
     overflowed: torch.Tensor  # () bool: num_pairs > budget
     visible: torch.Tensor | None = None  # (N,) bool, when want_visibility
@@ -51,7 +57,8 @@ def check_overflow(stats: RenderStats, action: str = "warn") -> bool:
         msg = (
             f"pair budget overflow: frame needed {int(stats.num_pairs)} (splat, tile) "
             f"pairs but the static budget is {stats.budget}; pairs were dropped "
-            "splat-id-major. Raise config.pair_multiplier."
+            "(depth-major on the torch backend, splat-id-major on the cuda backend). "
+            "Raise config.pair_multiplier."
         )
         if action == "raise":
             raise RuntimeError(msg)
@@ -148,10 +155,11 @@ def render_with_stats(
     "non-empty on-screen tile rect" mask (the 3DGS ``radii > 0`` filter).
 
     The stages carry ``torch.profiler`` ranges, the JAX package's named
-    scopes: ``splat_decode``, ``splat_project``, ``splat_rasterize_cuda``
-    and, inside it, ``splat_bin`` (``ops/rasterize_cuda.py``).
+    scopes: ``splat_decode``, ``splat_project``, then ``splat_rasterize_cuda``
+    with ``splat_bin`` inside it (``ops/rasterize_cuda.py``), or
+    ``splat_bin`` and ``splat_rasterize_torch``.
     """
-    if backend not in ("cuda", "reference"):
+    if backend not in ("cuda", "torch", "reference"):
         raise ValueError(f"unknown backend {backend!r}")
     dev = resolve_device(device)
     g = _decoded(gaussians, dev, planar_sh=config.decode_planar_sh)
@@ -175,6 +183,12 @@ def render_with_stats(
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         return img, RenderStats(zero, 0, zero < 0, visible)
     budget = pair_budget(proj.depth.shape[0], config)
+    if backend == "torch":
+        with record_function("splat_bin"):
+            binning = bin_splats(proj, w, h, config)
+        with record_function("splat_rasterize_torch"):
+            img = rasterize_tiles_torch(proj, binning, w, h, config)
+        return img, RenderStats(binning.num_pairs, budget, binning.num_pairs > budget, visible)
     with record_function("splat_rasterize_cuda"):
         img, num_pairs = rasterize(proj, w, h, config)
     return img, RenderStats(num_pairs, budget, num_pairs > budget, visible)
@@ -219,8 +233,8 @@ def render_multi(
     objects composite front to back into one target ("under" blending).
     Splats of different objects do not interleave in depth, as in the
     reference.  The origins' depths are one host read a frame.  The backend
-    defaults to ``"cuda"``; the JAX package's default, its XLA tile path,
-    has no port yet.  Runs on ``device`` (CUDA unless told otherwise).
+    defaults to ``"cuda"``; the JAX package's default, its XLA tile path, is
+    ``"torch"`` here.  Runs on ``device`` (CUDA unless told otherwise).
     """
     dev = resolve_device(device)
     camera = camera.to(dev)

@@ -9,9 +9,10 @@ Optax's functional optimizers become :class:`GroupAdam`: one
 fields, as ``optax.multi_transform`` labels them.  ``opt.init(raw)`` returns
 the ``torch.optim.Adam`` that plays the role of the optimizer state; its
 parameters are ``raw``'s own tensors, which a step updates in place.  Steps
-run eagerly; there is nothing to compile.  The port has no ``"jax"``
-backend, so steps render with ``backend="cuda"`` by default: the
-hand-written kernels on a CUDA device, their plain versions on the CPU.
+run eagerly; there is nothing to compile.  Steps render with
+``backend="cuda"`` by default: the hand-written kernels on a CUDA device,
+their plain versions on the CPU; ``backend="torch"`` is the JAX package's
+default, its tile path, differentiated by autograd.
 """
 
 from __future__ import annotations

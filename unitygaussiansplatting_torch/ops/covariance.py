@@ -1,10 +1,12 @@
 """3D covariance, EWA screen-space projection and screen-axis decomposition.
 
 The covariance math of GaussianSplatting.hlsl:29-108 and the 2x2
-eigen-decomposition of SplatUtilities.compute:107-162, fused on planar (N,)
-columns.  Every product is written out elementwise: no matrix product, so no
-TF32 or library summation order enters the pixel-scale values, and the term
-order equals the JAX package's ``project_covariance_planar``.
+eigen-decomposition of SplatUtilities.compute:107-162: composable functions
+over leading batch dims (:func:`covariance3d`, :func:`ewa_project`,
+:func:`conic`, :func:`gaussian_power`), and the projection's fused form on
+planar (N,) columns, which repeats them term for term.  Every product is
+written out elementwise: no matrix product, so no TF32 or library summation
+order enters the pixel-scale values.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from .quaternion import quat_to_rotation_matrix
+
 # Low-pass filter on the screen covariance diagonal (hlsl:86-88).
 COV2D_LOWPASS = 0.3
 # View-space position clamp factor for off-screen splats (hlsl:61-68).
@@ -20,6 +24,81 @@ CLAMP_FACTOR = 1.3
 # Minor eigenvalue floor / axis length cap (SplatUtilities.compute:154-158).
 MIN_LAMBDA = 0.1
 MAX_AXIS_LEN = 4096.0
+
+
+def covariance3d(rot_xyzw: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Rotation quaternion + linear scale -> 3D covariance ``(xx, xy, xz, yy,
+    yz, zz)`` of Sigma = (R S)(R S)^T (GaussianSplatting.hlsl:29-53)."""
+    m = quat_to_rotation_matrix(rot_xyzw) * scale[..., None, :]  # R @ diag(s)
+    m0, m1, m2 = m[..., 0, :], m[..., 1, :], m[..., 2, :]
+
+    def dot(a, b):
+        return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+    return torch.stack([dot(m0, m0), dot(m0, m1), dot(m0, m2), dot(m1, m1), dot(m1, m2), dot(m2, m2)], dim=-1)
+
+
+def cov3d_to_matrix(cov6: torch.Tensor) -> torch.Tensor:
+    """Packed 6-vector -> symmetric (..., 3, 3) matrix."""
+    xx, xy, xz, yy, yz, zz = cov6.unbind(-1)
+    return torch.stack(
+        [torch.stack([xx, xy, xz], -1), torch.stack([xy, yy, yz], -1), torch.stack([xz, yz, zz], -1)], dim=-2
+    )
+
+
+def ewa_project(
+    view_pos: torch.Tensor,
+    cov6: torch.Tensor,
+    view_rot: torch.Tensor,
+    focal: float,
+    tan_fovx: float,
+    tan_fovy: float,
+) -> torch.Tensor:
+    """EWA splatting (Zwicker et al. 2002, eq. 31) as the reference does it
+    (GaussianSplatting.hlsl:56-90): the view position clamped to 1.3x the
+    frustum tangent, the 2x3 Jacobian with one focal length, the world->view
+    rotation ``view_rot`` ((3, 3) or (..., 3, 3)) folded in, the 0.3 low-pass.
+    Returns pixel-space (y-down) ``(cxx, cxy, cyy)``: the off-diagonal's sign
+    is flipped against the y-up NDC result."""
+    z = view_pos[..., 2]
+    lim_x = CLAMP_FACTOR * tan_fovx
+    lim_y = CLAMP_FACTOR * tan_fovy
+    tx = torch.clamp(view_pos[..., 0] / z, -lim_x, lim_x) * z
+    ty = torch.clamp(view_pos[..., 1] / z, -lim_y, lim_y) * z
+    inv_z = 1.0 / z
+    inv_z2 = inv_z * inv_z
+    j00 = focal * inv_z
+    j02 = -focal * tx * inv_z2
+    j12 = -focal * ty * inv_z2
+    w = view_rot.expand(view_pos.shape[:-1] + (3, 3))
+    t0 = j00[..., None] * w[..., 0, :] + j02[..., None] * w[..., 2, :]
+    t1 = j00[..., None] * w[..., 1, :] + j12[..., None] * w[..., 2, :]
+    vxx, vxy, vxz, vyy, vyz, vzz = cov6.unbind(-1)
+
+    def quad(a, b):
+        return (
+            a[..., 0] * (vxx * b[..., 0] + vxy * b[..., 1] + vxz * b[..., 2])
+            + a[..., 1] * (vxy * b[..., 0] + vyy * b[..., 1] + vyz * b[..., 2])
+            + a[..., 2] * (vxz * b[..., 0] + vyz * b[..., 1] + vzz * b[..., 2])
+        )
+
+    return torch.stack([quad(t0, t0) + COV2D_LOWPASS, -quad(t0, t1), quad(t1, t1) + COV2D_LOWPASS], dim=-1)
+
+
+def conic(cov2d: torch.Tensor) -> torch.Tensor:
+    """2D covariance ``(cxx, cxy, cyy)`` -> conic ``(a, b, c)``, the inverse
+    (GaussianSplatting.hlsl:92-96)."""
+    cxx, cxy, cyy = cov2d.unbind(-1)
+    inv_det = 1.0 / (cxx * cyy - cxy * cxy)
+    return torch.stack([cyy * inv_det, -cxy * inv_det, cxx * inv_det], dim=-1)
+
+
+def gaussian_power(conic_abc: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Log-density of the screen Gaussian at pixel offset ``d``
+    (GaussianSplatting.hlsl:105-108)."""
+    a, b, c = conic_abc.unbind(-1)
+    dx, dy = d[..., 0], d[..., 1]
+    return -0.5 * (a * dx * dx + c * dy * dy) + b * dx * dy
 
 
 class ScreenAxes(NamedTuple):

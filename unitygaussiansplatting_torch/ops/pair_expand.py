@@ -61,7 +61,7 @@ def prepare_table_plain(proj, width: int, height: int, config: RasterizeConfig):
     proj = quantize_view_fp16(proj, config)
     tiles_x, tiles_y = tile_grid(width, height, config)
     num_tiles = tiles_x * tiles_y
-    db = depth_key_bits(num_tiles)
+    db = depth_key_bits(num_tiles, config)
     x0, y0, nx, _, counts, valid = tile_rects(proj, width, height, config)
     live = valid & (counts > 0)
     counts_slots = torch.where(live, counts, 1).to(torch.int32)
@@ -148,7 +148,7 @@ def prepare_table(proj, width: int, height: int, config: RasterizeConfig):
     num_real = torch.zeros((), dtype=torch.int32, device=dev)
     lib = cuda_build.library("pair_table")
     status = lib.pair_table_launch(
-        *cols, n, tiles_x, tiles_y, config.tile_w, config.tile_h, depth_key_bits(tiles_x * tiles_y),
+        *cols, n, tiles_x, tiles_y, config.tile_w, config.tile_h, depth_key_bits(tiles_x * tiles_y, config),
         config.alpha_discard, expand_flags(config), table.data_ptr(), bounds.data_ptr(), num_real.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -212,7 +212,7 @@ def expand_pairs_plain(table, bounds, k: int, width: int, height: int, config: R
     n = table.shape[1]
     tiles_x, tiles_y = tile_grid(width, height, config)
     num_tiles = tiles_x * tiles_y
-    db = depth_key_bits(num_tiles)
+    db = depth_key_bits(num_tiles, config)
     flags = expand_flags(config)
     dev = table.device
     slots = torch.arange(k, device=dev, dtype=torch.int64)
@@ -325,7 +325,7 @@ def expand_pairs(table, bounds, k: int, width: int, height: int, config: Rasteri
     lib = cuda_build.library("pair_expand")
     status = lib.expand_pairs_launch(
         table.data_ptr(), bounds.data_ptr(), n, k, tiles_x, num_tiles,
-        config.tile_w, config.tile_h, depth_key_bits(num_tiles), config.alpha_discard,
+        config.tile_w, config.tile_h, depth_key_bits(num_tiles, config), config.alpha_discard,
         expand_flags(config), comp.data_ptr(), fields.data_ptr(),
         torch.cuda.current_stream(table.device).cuda_stream,
     )
@@ -403,7 +403,7 @@ def bin_and_prepare(proj, width: int, height: int, config: RasterizeConfig = Ras
     n = proj.depth.shape[0]
     tiles_x, tiles_y = tile_grid(width, height, config)
     num_tiles = tiles_x * tiles_y
-    db = depth_key_bits(num_tiles)
+    db = depth_key_bits(num_tiles, config)
     k = pair_budget(n, config)
     table, bounds, num_real = prepare_table(proj, width, height, config)
     comp, fields = expand_pairs(table, bounds, k, width, height, config)
@@ -412,6 +412,7 @@ def bin_and_prepare(proj, width: int, height: int, config: RasterizeConfig = Ras
         pair_rank=(comp_s & ((1 << SPLAT_BITS) - 1)).to(torch.int32),
         pair_tile=(comp_s >> (SPLAT_BITS + db)).to(torch.int32),
         tile_starts=tile_starts,
+        num_pairs=bounds[-1],
         perm=perm,
         bounds=bounds,
     )

@@ -1,8 +1,12 @@
-"""View-data rounding shared by every rasterizer path.
+"""View-data rounding shared by every rasterizer path, and the tile path's
+chunk math.
 
 ``quantize_view_fp16`` puts projected color, opacity and (optionally) axes on
 the lattice the pack flags of :class:`RasterizeConfig` name, so every backend
 composites identical values and the expansion kernel's round trips are exact.
+``chunk_alphas`` and ``composite_chunk`` fold a chunk of depth-ordered splats
+into a tile: alphas of C splats at P pixels, the exclusive prefix product of
+``1 - alpha`` along the chunk, the colors as one matrix product.
 """
 
 from __future__ import annotations
@@ -104,3 +108,52 @@ def quantize_view_fp16(proj, config: RasterizeConfig):
     elif config.pack_axes_f16:
         proj = proj._replace(axis1=_f16_round(proj.axis1), axis2=_f16_round(proj.axis2))
     return proj
+
+
+def chunk_alphas(
+    center: torch.Tensor,  # (..., C, 2)
+    axis1: torch.Tensor,  # (..., C, 2)
+    axis2: torch.Tensor,  # (..., C, 2)
+    opacity: torch.Tensor,  # (..., C)
+    px: torch.Tensor,  # (..., P) pixel-center x
+    py: torch.Tensor,  # (..., P) pixel-center y
+    config: RasterizeConfig,
+) -> torch.Tensor:
+    """Quad-clipped Gaussian alpha for C splats at P pixels; (..., C, P).
+
+    The fragment shader's math (RenderGaussianSplats.shader:79-104) in the
+    term order of K1 and ``rasterize_ref.splat_alpha_map``: the reciprocal
+    multiply at per-splat scale, then the clip, the discard and the quad
+    clip.  Leading dims batch tiles.
+    """
+    dx = px.unsqueeze(-2) - center[..., 0:1]  # (..., C, P)
+    dy = py.unsqueeze(-2) - center[..., 1:2]
+    a1_sq = torch.clamp(torch.sum(axis1 * axis1, dim=-1, keepdim=True), min=1e-12)
+    a2_sq = torch.clamp(torch.sum(axis2 * axis2, dim=-1, keepdim=True), min=1e-12)
+    qx = dx * (axis1[..., 0:1] / a1_sq) + dy * (axis1[..., 1:2] / a1_sq)
+    qy = dx * (axis2[..., 0:1] / a2_sq) + dy * (axis2[..., 1:2] / a2_sq)
+    alpha = torch.exp(-(qx * qx + qy * qy)) * opacity.unsqueeze(-1)
+    alpha = torch.clamp(alpha, 0.0, config.alpha_max)
+    keep = alpha >= config.alpha_discard
+    if config.quad_clip:
+        keep &= (torch.abs(qx) <= 2.0) & (torch.abs(qy) <= 2.0)
+    return torch.where(keep, alpha, 0.0)
+
+
+def composite_chunk(
+    transmittance: torch.Tensor,  # (..., P) running per-pixel transmittance
+    alphas: torch.Tensor,  # (..., C, P) chunk alphas, depth-ordered along C
+    colors: torch.Tensor,  # (..., C, 3)
+):
+    """Fold one chunk into the running front-to-back composite.
+
+    Returns ``(rgb (..., P, 3), alpha (..., P), new transmittance (..., P))``.
+    Splat i weighs ``T_in * prod_{j<i}(1 - a_j) * a_i``: the exclusive prefix
+    product is a cumprod along the chunk shifted by one, and the color sum
+    one matrix product (TF32 stays off: ``utils.device.resolve_device``).
+    """
+    cum = torch.cumprod(1.0 - alphas, dim=-2)  # inclusive prefix
+    excl = torch.cat([torch.ones_like(cum[..., :1, :]), cum[..., :-1, :]], dim=-2)
+    w = excl * alphas * transmittance.unsqueeze(-2)  # (..., C, P)
+    rgb = torch.matmul(w.transpose(-1, -2), colors)
+    return rgb, torch.sum(w, dim=-2), transmittance * cum[..., -1, :]

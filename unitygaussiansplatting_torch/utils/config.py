@@ -1,9 +1,9 @@
 """Configuration dataclasses for the renderer.
 
 The same fields and defaults as ``unitygaussiansplatting_tpu.utils.config``,
-as plain frozen dataclasses.  A few fields only steer the TPU package's own
-schedule and are kept so that one config describes a frame in both packages;
-the port ignores them (noted per field).
+as plain frozen dataclasses, plus the port's ``depth_bits``.  A few fields
+only steer the TPU package's own schedule and are kept so that one config
+describes a frame in both packages; the port ignores them (noted per field).
 """
 
 from __future__ import annotations
@@ -43,7 +43,12 @@ class RasterizeConfig:
     # its own fixed windows and ignores both.
     expand_chunk: int = 512
     expand_windows: int = 1
-    # Work cap of the TPU package's XLA tile path (not ported yet).
+    # Bits of quantized view depth in the compositing order; None: the tile
+    # grid's (binning.depth_key_bits).  A strip renders with its frame's, so
+    # that its order, and its pixels, are the frame's.
+    depth_bits: int | None = None
+    # Work cap of the tile path (backend="torch"): a tile composites at most
+    # this many pairs, rounded up to a chunk; the fused pipeline has none.
     max_pairs_per_tile: int = 8192
     # Decode a DeviceAsset's SH as three planar (N, 15) channels.
     decode_planar_sh: bool = False

@@ -343,3 +343,55 @@ def captured_scene(n: int = 2_000_000, seed: int = 0) -> RawGaussians:
         sh0=torch.from_numpy(sh0),
         sh=torch.from_numpy(sh),
     )
+
+
+def outdoor_scene(n: int = 1_000_000, seed: int = 0) -> RawGaussians:
+    """Synthetic scene with real-capture-like statistics (bicycle-class).
+
+    A dense foreground cluster of small splats, a ground plane and a sparse
+    far shell of large splats; log-normal scales over ~3 decades and a
+    bimodal opacity (translucent floaters and solid surface splats).  Host
+    numpy, bit-identical to the JAX package's ``outdoor_scene`` for the same
+    arguments; returns CPU tensors.
+    """
+    rng = np.random.default_rng(seed)
+    n_fg = int(n * 0.55)
+    n_ground = int(n * 0.25)
+    n_bg = n - n_fg - n_ground
+
+    fg = rng.normal(size=(n_fg, 3)) * np.asarray([1.2, 0.8, 1.2])
+    ground = np.stack(
+        [
+            rng.uniform(-12, 12, size=n_ground),
+            -0.8 + 0.05 * rng.normal(size=n_ground),
+            rng.uniform(-12, 12, size=n_ground),
+        ],
+        axis=1,
+    )
+    dirs = rng.normal(size=(n_bg, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    r_bg = rng.uniform(8.0, 30.0, size=(n_bg, 1))
+    means = np.concatenate([fg, ground, dirs * r_bg]).astype(np.float32)
+
+    # Medians ~1.5 cm foreground, 4 cm ground; the background proportional
+    # to distance (a constant angular size); mild flattening everywhere.
+    ls_fg = rng.normal(np.log(0.015), 0.9, size=(n_fg, 3))
+    ls_ground = rng.normal(np.log(0.04), 0.7, size=(n_ground, 3))
+    ls_bg = np.log(r_bg * 0.02) + rng.normal(0.0, 0.5, size=(n_bg, 3))
+    log_scales = np.concatenate([ls_fg, ls_ground, ls_bg]).astype(np.float32)
+    log_scales[:, 1] -= rng.uniform(0.0, 1.5, size=n).astype(np.float32)
+
+    solid = rng.random(n) < 0.5
+    opacity_logits = np.where(solid, rng.uniform(0.5, 6.0, size=n), rng.uniform(-4.5, 0.5, size=n)).astype(np.float32)
+
+    rot = rng.normal(size=(n, 4)).astype(np.float32)
+    sh0 = rng.uniform(-1.2, 1.8, size=(n, 3)).astype(np.float32)
+    sh = (0.15 * rng.normal(size=(n, 15, 3))).astype(np.float32)
+    return RawGaussians(
+        means=torch.from_numpy(means),
+        rotations_wxyz=torch.from_numpy(rot),
+        log_scales=torch.from_numpy(log_scales),
+        opacity_logits=torch.from_numpy(opacity_logits),
+        sh0=torch.from_numpy(sh0),
+        sh=torch.from_numpy(sh),
+    )
