@@ -3,7 +3,8 @@ one backward through ``render`` on the card against the CPU, and the import
 pipeline's device steps (the Morton order against its plain version, the
 k-means bit for bit across runs and near the CPU's), the debug point
 modes on the card equal to the CPU's, the tile path (``backend="torch"``)
-on the card against the CPU, and strips on a world of one NCCL rank.  K2's
+on the card against the CPU, strips on a world of one NCCL rank, and the
+``train_splats`` program's first steps on the card against the CPU.  K2's
 operands come from a per-splat kernel, and K2 runs in windows of slots; K1
 runs as clusters of CTAs and saves K3's checkpoints; K3 runs one block per
 segment from them.
@@ -458,6 +459,18 @@ def test_render_torch_backend_on_card_matches_cpu(device):
     want = render(g, cam, backend="torch", device="cpu")
     got = render(g, cam, backend="torch", device=device).cpu()
     assert float((got - want).abs().max()) <= K1_ATOL
+
+
+@pytest.mark.cuda
+def test_train_splats_steps_on_card_match_cpu(device):
+    # The program's own scene, frame and small-tile config (tiles of 64x8,
+    # 64-pair steps), three steps on each device.
+    from unitygaussiansplatting_torch.examples import train_splats
+
+    want = train_splats.run(None, steps=3, device="cpu")["losses"]
+    got = train_splats.run(None, steps=3, device=device)["losses"]
+    assert len(got) == len(want) == 3
+    assert all(abs(g - w) <= 1e-4 * abs(w) for g, w in zip(got, want)), (got, want)
 
 
 @pytest.mark.cuda

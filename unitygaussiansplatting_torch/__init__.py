@@ -16,6 +16,23 @@ versions on the CPU)::
     cloud = input_splats_to_gaussians(decode_asset(asset))
     cam = Camera.look_at([0, 0, -3], [0, 0, 0], [0, 1, 0], 45, 1200, 797)
     image = render(cloud, cam)  # (H, W, 4) premultiplied RGBA on the card
+
+The user-facing programs run as ``python -m unitygaussiansplatting_torch.<name>``
+(add ``--device cpu`` without a card), each the counterpart of a JAX script:
+
+- ``examples.render_sphere``: ``examples/render_sphere.py``;
+- ``examples.orbit``: ``examples/orbit.py``;
+- ``examples.render_asset``: ``examples/render_asset.py``;
+- ``examples.train_splats``: ``examples/train_splats.py``;
+- ``examples.train_full``: ``examples/train_full.py``;
+- ``tools.measure_overlap``: ``tools/measure_overlap.py``;
+- ``tools.measure_bc7``: ``tools/measure_bc7.py``.
+
+``examples.train_full`` differs from its JAX script on purpose in two
+places: its held-out cameras sit at true midpoints of the training ring
+(the JAX script's r5 "held-out" cameras are training cameras), and its
+first/last loss means divide by the real counts (the JAX script divides by
+a hard-coded 10).  ``examples`` says more.
 """
 
 from .models.camera import Camera
