@@ -492,3 +492,28 @@ def test_nccl_world_of_one_strips_equal_render(device):
             assert torch.equal(strips, render(g, cam, backend=backend)), backend
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_bench_pairs_on_card_equal_cpu(device):
+    # The bench's pair counts (render_phases on its scenes, cameras and
+    # configs at its default width) at 20,000 splats, the clouds activated on
+    # the host and copied to each device.
+    from unitygaussiansplatting_torch import bench
+    from unitygaussiansplatting_torch.utils.config import RenderSettings
+    from unitygaussiansplatting_torch.utils.profiling import render_phases
+    from unitygaussiansplatting_torch.utils.synthetic import outdoor_scene
+
+    cfg = bench.BenchConfig.from_env({})
+    n = 20_000
+    scenes = {
+        "headline": (bench.headline_scene(n, True, "cpu"), bench.headline_camera(cfg.width, cfg.height),
+                     bench.headline_config(cfg)),
+        "outdoor": (outdoor_scene(n=n, seed=1).activate(), bench.outdoor_camera(cfg.width, cfg.height),
+                    bench.scene_config(cfg, cfg.real_pair_mult)),
+    }
+    for name, (g, cam, config) in scenes.items():
+        pairs = [bench.pair_record(render_phases(g.to(dev), cam, RenderSettings(sh_order=3), config, reps=1,
+                                                 device=dev)) for dev in (device, torch.device("cpu"))]
+        assert pairs[0] == pairs[1], name
+        assert pairs[0]["num_pairs"] > n and not pairs[0]["overflow"], name

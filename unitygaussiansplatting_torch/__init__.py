@@ -26,7 +26,8 @@ The user-facing programs run as ``python -m unitygaussiansplatting_torch.<name>`
 - ``examples.train_splats``: ``examples/train_splats.py``;
 - ``examples.train_full``: ``examples/train_full.py``;
 - ``tools.measure_overlap``: ``tools/measure_overlap.py``;
-- ``tools.measure_bc7``: ``tools/measure_bc7.py``.
+- ``tools.measure_bc7``: ``tools/measure_bc7.py``;
+- ``bench``: ``bench.py``, the headline benchmark and its extras.
 
 ``examples.train_full`` differs from its JAX script on purpose in two
 places: its held-out cameras sit at true midpoints of the training ring
