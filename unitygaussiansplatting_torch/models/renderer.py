@@ -155,9 +155,12 @@ def render_with_stats(
     "non-empty on-screen tile rect" mask (the 3DGS ``radii > 0`` filter).
 
     The stages carry ``torch.profiler`` ranges, the JAX package's named
-    scopes: ``splat_decode``, ``splat_project``, then ``splat_rasterize_cuda``
-    with ``splat_bin`` inside it (``ops/rasterize_cuda.py``), or
-    ``splat_bin`` and ``splat_rasterize_torch``.
+    scopes: ``splat_decode``, ``splat_project`` with ``splat_sh`` inside it
+    (``ops/projection.py``), then ``splat_rasterize_cuda`` with ``splat_bin``
+    inside it (``ops/rasterize_cuda.py``) and ``splat_sort`` inside that
+    (``ops/pair_expand.py``), or ``splat_bin`` alone on the ``"torch"``
+    backend.  ``ViewerSession.frame`` wraps the whole frame in
+    ``splat_frame``.
     """
     if backend not in ("cuda", "torch", "reference"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -186,8 +189,7 @@ def render_with_stats(
     if backend == "torch":
         with record_function("splat_bin"):
             binning = bin_splats(proj, w, h, config)
-        with record_function("splat_rasterize_torch"):
-            img = rasterize_tiles_torch(proj, binning, w, h, config)
+        img = rasterize_tiles_torch(proj, binning, w, h, config)
         return img, RenderStats(binning.num_pairs, budget, binning.num_pairs > budget, visible)
     with record_function("splat_rasterize_cuda"):
         img, num_pairs = rasterize(proj, w, h, config)

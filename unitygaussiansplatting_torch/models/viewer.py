@@ -22,6 +22,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..utils.config import RasterizeConfig, RenderSettings
 from .camera import Camera
@@ -80,25 +81,29 @@ class ViewerSession:
         )
 
     def frame(self, view=None, splat_scale: float = 1.0, opacity_scale: float = 1.0) -> torch.Tensor:
-        """Render (or reuse) the frame for this pose and display settings."""
-        view = self._camera.view if view is None else view
-        self.stats.frames += 1
-        key = self._key(view, splat_scale, opacity_scale)
-        if key == self._cache_key and self._cache_img is not None:
-            self.stats.reused += 1
-            return self._cache_img
-        # The scales enter as float32, as the JAX package's traced scalars do.
-        cam = dataclasses.replace(self._camera, view=torch.as_tensor(view, dtype=torch.float32))
-        settings = dataclasses.replace(
-            self._settings,
-            splat_scale=float(np.float32(splat_scale)),
-            opacity_scale=float(np.float32(opacity_scale)),
-        )
-        img = render(self._g, cam, settings, self._config, self._backend, device=self._device)
-        self.stats.rendered += 1
-        self._cache_key = key
-        self._cache_img = img
-        return img
+        """Render (or reuse) the frame for this pose and display settings.
+
+        The whole call, a memo hit too, is the ``splat_frame`` profiler range.
+        """
+        with record_function("splat_frame"):
+            view = self._camera.view if view is None else view
+            self.stats.frames += 1
+            key = self._key(view, splat_scale, opacity_scale)
+            if key == self._cache_key and self._cache_img is not None:
+                self.stats.reused += 1
+                return self._cache_img
+            # The scales enter as float32, as the JAX package's traced scalars do.
+            cam = dataclasses.replace(self._camera, view=torch.as_tensor(view, dtype=torch.float32))
+            settings = dataclasses.replace(
+                self._settings,
+                splat_scale=float(np.float32(splat_scale)),
+                opacity_scale=float(np.float32(opacity_scale)),
+            )
+            img = render(self._g, cam, settings, self._config, self._backend, device=self._device)
+            self.stats.rendered += 1
+            self._cache_key = key
+            self._cache_img = img
+            return img
 
     def invalidate(self) -> None:
         """Drop the frame cache (call after editing the splat cloud)."""

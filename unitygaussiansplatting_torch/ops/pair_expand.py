@@ -25,6 +25,7 @@ splat-major.
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from ..utils.config import RasterizeConfig
 from . import cuda_build
@@ -407,7 +408,8 @@ def bin_and_prepare(proj, width: int, height: int, config: RasterizeConfig = Ras
     k = pair_budget(n, config)
     table, bounds, num_real = prepare_table(proj, width, height, config)
     comp, fields = expand_pairs(table, bounds, k, width, height, config)
-    comp_s, fields_s, tile_starts, perm = sort_pairs(comp, fields, num_tiles, db)
+    with record_function("splat_sort"):
+        comp_s, fields_s, tile_starts, perm = sort_pairs(comp, fields, num_tiles, db)
     binning = TileBinning(
         pair_rank=(comp_s & ((1 << SPLAT_BITS) - 1)).to(torch.int32),
         pair_tile=(comp_s >> (SPLAT_BITS + db)).to(torch.int32),

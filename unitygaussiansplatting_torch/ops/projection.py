@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import TYPE_CHECKING, NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from ..utils.config import RenderSettings
 from .covariance import project_covariance_planar
@@ -89,24 +90,25 @@ def project_splats(
     inv_det = 1.0 / torch.clamp(det, min=1e-12)
     conic = torch.stack([cyy * inv_det, -cxy * inv_det, cxx * inv_det], dim=-1)
 
-    # View-dependent color: direction camera->splat in object space.
-    view_dir = means_world - camera.position
-    if inv_model_rot is not None:
-        view_dir = view_dir @ inv_model_rot.T
-    view_dir = view_dir / torch.sqrt(
-        torch.clamp(torch.sum(view_dir * view_dir, dim=-1, keepdim=True), min=1e-24)
-    )
-    color = shade_sh(
-        g.base_color,
-        g.sh if settings.sh_order > 0 else None,
-        view_dir,
-        settings.sh_order,
-        settings.sh_only,
-    )
-    opacity = torch.clamp(g.opacities * float(settings.opacity_scale), max=OPACITY_CLAMP)
-    if settings.fp16_color:
-        color = color.to(torch.float16).to(torch.float32)
-        opacity = opacity.to(torch.float16).to(torch.float32)
+    with record_function("splat_sh"):
+        # View-dependent color: direction camera->splat in object space.
+        view_dir = means_world - camera.position
+        if inv_model_rot is not None:
+            view_dir = view_dir @ inv_model_rot.T
+        view_dir = view_dir / torch.sqrt(
+            torch.clamp(torch.sum(view_dir * view_dir, dim=-1, keepdim=True), min=1e-24)
+        )
+        color = shade_sh(
+            g.base_color,
+            g.sh if settings.sh_order > 0 else None,
+            view_dir,
+            settings.sh_order,
+            settings.sh_only,
+        )
+        opacity = torch.clamp(g.opacities * float(settings.opacity_scale), max=OPACITY_CLAMP)
+        if settings.fp16_color:
+            color = color.to(torch.float16).to(torch.float32)
+            opacity = opacity.to(torch.float16).to(torch.float32)
 
     return ProjectedSplats(
         depth=depth,

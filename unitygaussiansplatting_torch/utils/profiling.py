@@ -6,9 +6,11 @@ and :287 ``GaussianSplat.Sort``), which give the readme's published phase
 breakdown (readme.md:84).  Two mechanisms:
 
 - ``torch.profiler.record_function`` ranges inside ``render_with_stats``
-  (``splat_decode``, ``splat_project``, ``splat_bin`` within
-  ``splat_rasterize_cuda``) label the frame's kernels in a
-  ``torch.profiler`` trace; :func:`trace_frame` captures one.
+  (``splat_decode``; ``splat_project`` with the SH shading's ``splat_sh``
+  inside it; ``splat_rasterize_cuda`` with ``splat_bin`` inside it and the
+  sort, gather and ``searchsorted``'s ``splat_sort`` inside that), and
+  ``splat_frame`` around a whole ``ViewerSession.frame``, label the frame's
+  kernels in a ``torch.profiler`` trace; :func:`trace_frame` captures one.
 - :func:`render_phases` times each stage of the forward as its own call.
   The stage boundaries follow the frame's dataflow, so their sum comes
   close to the fused frame's time.
