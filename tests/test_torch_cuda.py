@@ -4,7 +4,9 @@ pipeline's device steps (the Morton order against its plain version, the
 k-means bit for bit across runs and near the CPU's), the debug point
 modes on the card equal to the CPU's, the tile path (``backend="torch"``)
 on the card against the CPU, strips on a world of one NCCL rank, and the
-``train_splats`` program's first steps on the card against the CPU.  K2's
+``train_splats`` program's first steps on the card against the CPU, and the
+projection's two kernels (``csrc/project.cu``) against its plain version
+bit for bit, alone and in a frame.  K2's
 operands come from a per-splat kernel, and K2 runs in windows of slots; K1
 runs as clusters of CTAs and saves K3's checkpoints; K3 runs one block per
 segment from them.
@@ -16,6 +18,10 @@ neither JAX nor the JAX package, so it also runs where JAX is not installed
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
+import json
+import warnings
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -24,12 +30,14 @@ from unitygaussiansplatting_torch.models.camera import Camera  # noqa: E402
 from unitygaussiansplatting_torch.ops import cuda_build  # noqa: E402
 from unitygaussiansplatting_torch.ops import pair_expand as pe  # noqa: E402
 from unitygaussiansplatting_torch.models.gaussians import Gaussians  # noqa: E402
+from unitygaussiansplatting_torch.models import renderer  # noqa: E402
 from unitygaussiansplatting_torch.models.renderer import render  # noqa: E402
+from unitygaussiansplatting_torch.ops import projection  # noqa: E402
 from unitygaussiansplatting_torch.ops import rasterize_cuda as rc  # noqa: E402
 from unitygaussiansplatting_torch.ops import rasterize_cuda_bwd as rb  # noqa: E402
 from unitygaussiansplatting_torch.ops.binning import depth_key_bits, pair_budget, tile_grid  # noqa: E402
 from unitygaussiansplatting_torch.ops.projection import ProjectedSplats, project_splats  # noqa: E402
-from unitygaussiansplatting_torch.utils.config import RasterizeConfig  # noqa: E402
+from unitygaussiansplatting_torch.utils.config import RasterizeConfig, RenderSettings  # noqa: E402
 from unitygaussiansplatting_torch.utils.synthetic import sphere_scene  # noqa: E402
 
 # The scene and camera of tests/test_pallas.py:16-26.
@@ -517,3 +525,168 @@ def test_bench_pairs_on_card_equal_cpu(device):
                                                  device=dev)) for dev in (device, torch.device("cpu"))]
         assert pairs[0] == pairs[1], name
         assert pairs[0]["num_pairs"] > n and not pairs[0]["overflow"], name
+
+
+# The projection's kernels against its plain version: every field bit for
+# bit (NaN against NaN, whatever its payload), valid exact.  Scenes: the
+# sphere; the camera looking away (every splat behind it); an identity view
+# with every 5th splat at view depth exactly 0, every 7th behind the camera
+# and every 3rd killed; planar SH (three strided (N, 15) views); interleaved
+# SH at other strides; 1499 splats (the last block's 91 x 45 floats end
+# short of a float4) and SH that starts off 16-byte alignment (read in
+# place); a model matrix.
+PROJ_SCENES = ("sphere", "behind-camera", "depth-zero-and-killed", "planar-sh", "strided-sh", "tail-1499",
+               "misaligned-sh", "model")
+PROJ_SETTINGS = {
+    "default": {}, "sh0": dict(sh_order=0), "sh1": dict(sh_order=1), "sh2": dict(sh_order=2),
+    "sh-only": dict(sh_only=True), "fp16": dict(fp16_color=True),
+    "scaled": dict(splat_scale=1.7, opacity_scale=3.0, fp16_color=True),
+}
+
+
+def projection_scene(device, scene):
+    """``(gaussians, camera, model, kill_mask)`` of one of PROJ_SCENES."""
+    g = sphere_scene(n=1500, seed=0).to(device).activate()
+    cam = Camera.look_at([0, 0.5, -3.0], [0, 0, 0], [0, 1, 0], 45.0, WIDTH, HEIGHT).to(device)
+    model = kill = None
+    if scene == "behind-camera":
+        cam = Camera.look_at([0, 0.5, -3.0], [0, 0.5, -6.0], [0, 1, 0], 45.0, WIDTH, HEIGHT).to(device)
+    elif scene == "depth-zero-and-killed":
+        cam = dataclasses.replace(cam, view=torch.eye(4, device=device))  # view depth = z, exactly
+        means = g.means + torch.tensor([0.0, 0.0, 3.5], device=device)
+        means[::5, 2] = 0.0
+        means[::7, 2] = -means[::7, 2]
+        g = dataclasses.replace(g, means=means)
+        kill = torch.zeros(1500, dtype=torch.bool, device=device)
+        kill[::3] = True
+    elif scene == "planar-sh":
+        g = dataclasses.replace(g, sh=tuple(g.sh[..., c] for c in range(3)))
+    elif scene == "strided-sh":
+        g = dataclasses.replace(g, sh=g.sh.transpose(1, 2).contiguous().transpose(1, 2))
+    elif scene == "tail-1499":
+        g = dataclasses.replace(g, **{f.name: getattr(g, f.name)[:1499] for f in dataclasses.fields(g)})
+    elif scene == "misaligned-sh":
+        g = dataclasses.replace(g, **{f.name: getattr(g, f.name)[1:] for f in dataclasses.fields(g)})
+    elif scene == "model":
+        c, s = 0.8, 0.6
+        model = torch.tensor([[c, 0.0, s, 0.2], [0.0, 1.0, 0.0, -0.1], [-s, 0.0, c, 0.3], [0.0, 0.0, 0.0, 1.0]],
+                             device=device)
+    return g, cam, model, kill
+
+
+def differing(x, y):
+    """Entries whose bits differ, NaN against NaN counting as equal."""
+    same = (x.view(torch.int32) == y.view(torch.int32)) | (torch.isnan(x) & torch.isnan(y))
+    return int((~same).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("settings", list(PROJ_SETTINGS))
+@pytest.mark.parametrize("scene", PROJ_SCENES)
+def test_projection_kernels_match_plain(device, scene, settings):
+    g, cam, model, kill = projection_scene(device, scene)
+    st = RenderSettings(**PROJ_SETTINGS[settings])
+    before = projection.project_splats.launches
+    got = projection.project_splats(g, cam, st, model=model, kill_mask=kill)
+    want = projection.project_splats_plain(g, cam, st, model=model, kill_mask=kill)
+    torch.cuda.synchronize()
+    assert projection.project_splats.launches == before + 1
+    # The SH kernel stages the interleaved, aligned scenes' SH and reads the others in place.
+    staged = projection._sh_channels(g.sh, g.means.shape[0], 15, g.means.device)[1]
+    assert staged == (scene not in ("planar-sh", "strided-sh", "misaligned-sh"))
+    assert torch.equal(got.valid, want.valid)
+    if scene == "behind-camera":
+        assert not bool(got.valid.any())
+    if scene == "depth-zero-and-killed":
+        assert bool((got.depth[::5] == 0).all()) and not bool(got.valid[::5].any())
+        assert not bool(got.valid[::3].any()) and bool(got.valid.any())
+    for field in ProjectedSplats._fields[:-1]:
+        x, y = getattr(got, field), getattr(want, field)
+        assert x.shape == y.shape and x.dtype == y.dtype == torch.float32, field
+        assert differing(x, y) == 0, f"{field}: {differing(x, y)} of {x.numel()} entries differ"
+
+
+@pytest.mark.cuda
+def test_projection_kernels_under_autograd_take_the_plain_version(device):
+    g, cam, _, _ = projection_scene(device, "sphere")
+    means = g.means.clone().requires_grad_(True)
+    before = projection.project_splats.launches
+    got = projection.project_splats(dataclasses.replace(g, means=means), cam)
+    assert projection.project_splats.launches == before
+    assert got.center.requires_grad
+    with torch.no_grad():
+        got = projection.project_splats(dataclasses.replace(g, means=means), cam)
+    assert projection.project_splats.launches == before + 1 and not got.center.requires_grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["interleaved", "planar"])
+def test_render_with_projection_kernels_equals_plain_projection(device, layout, monkeypatch):
+    g, cam, _, _ = projection_scene(device, "sphere" if layout == "interleaved" else "planar-sh")
+    got = render(g, cam, device=device)
+    monkeypatch.setattr(renderer, "project_splats", projection.project_splats_plain)
+    want = render(g, cam, device=device)
+    assert torch.equal(got, want)
+
+
+def _sync_warnings(fn) -> int:
+    """The synchronizing CUDA operations ``fn()`` runs, by the sync debug mode
+    (its notice that the mode is a prototype is not one)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum(str(w.message).startswith("called a synchronizing CUDA operation") for w in caught)
+
+
+def _launched_in(trace_path, name):
+    """Names of the device operations launched while the host range ``name``
+    was open on the launching thread, from a ``torch.profiler`` trace."""
+    events = json.load(open(trace_path))["traceEvents"]
+    spans = [(e["tid"], e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") == name]
+    launches = {e["args"]["correlation"]: (e["tid"], e["ts"]) for e in events
+                if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    names = []
+    for op in events:
+        if op.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            tid, ts = launches.get(op["args"].get("correlation"), (None, None))
+            if any(tid == t and lo <= ts <= hi for t, lo, hi in spans):
+                names.append(op["name"])
+    return names
+
+
+@pytest.mark.cuda
+def test_projection_launches_and_host_syncs_of_a_frame(device, tmp_path):
+    # A frame as a viewer renders it: the cloud on the card, the camera on
+    # the host (render_with_stats uploads it: the frame's one host sync).
+    g, _, _, _ = projection_scene(device, "sphere")
+    cam = Camera.look_at([0, 0.5, -3.0], [0, 0, 0], [0, 1, 0], 45.0, WIDTH, HEIGHT)
+    render(g, cam, device=device)  # builds and loads the kernels
+    torch.cuda.synchronize()
+    before = projection.project_splats.launches
+    assert _sync_warnings(lambda: render(g, cam, device=device)) == 1
+    assert projection.project_splats.launches == before + 1
+    torch.cuda.synchronize()
+    cam_card = cam.to(device)
+    assert _sync_warnings(lambda: projection.project_splats(g, cam_card)) == 0
+    counts = {}
+    for path, project in (("kernels", projection.project_splats), ("plain", projection.project_splats_plain)):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(renderer, "project_splats", project)
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                render(g, cam, device=device)
+                torch.cuda.synchronize()
+        trace = tmp_path / f"{path}.json"
+        prof.export_chrome_trace(str(trace))
+        counts[path] = (_launched_in(trace, "splat_project"), _launched_in(trace, "splat_sh"))
+    kernels, sh = counts["kernels"]
+    print({path: (len(p), len(s)) for path, (p, s) in counts.items()}, kernels)
+    # project_geom, project_sh and the camera position's product and negation.
+    assert sum("project_geom" in k for k in kernels) == 1 and sum("project_sh" in k for k in sh) == 1
+    assert len(kernels) <= 6 and set(sh) <= set(kernels)
+    assert len(counts["plain"][0]) > 100

@@ -1,9 +1,12 @@
-"""Port per-splat math and binning inputs vs the JAX package, on the CPU.
+"""Port per-splat math and binning inputs vs the JAX package, on the CPU,
+and the projection's dispatch between its plain version and its kernels.
 
 Float math at rtol 1e-5 / atol 1e-4 px (XLA's CPU code contracts a*b + c
 into FMA and its transcendentals differ from PyTorch's by an ulp); the
 lattice rounding and every integer binning input exactly.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -14,11 +17,14 @@ import jax.numpy as jnp  # noqa: E402
 
 import _torch_parity as tp  # noqa: E402
 from unitygaussiansplatting_torch.ops import activations as tact  # noqa: E402
+from unitygaussiansplatting_torch.ops import cuda_build  # noqa: E402
+from unitygaussiansplatting_torch.ops import projection  # noqa: E402
 from unitygaussiansplatting_torch.ops import binning as tb  # noqa: E402
 from unitygaussiansplatting_torch.ops import covariance as tcov  # noqa: E402
 from unitygaussiansplatting_torch.ops import sh as tsh  # noqa: E402
 from unitygaussiansplatting_torch.ops import tile_common as ttc  # noqa: E402
 from unitygaussiansplatting_torch.ops.projection import project_splats  # noqa: E402
+from unitygaussiansplatting_torch.models.camera import Camera  # noqa: E402
 from unitygaussiansplatting_torch.utils.config import RenderSettings  # noqa: E402
 from unitygaussiansplatting_torch.utils.synthetic import sphere_scene, sphere_scene_device  # noqa: E402
 from unitygaussiansplatting_tpu.ops import activations as jact  # noqa: E402
@@ -259,3 +265,103 @@ def test_depth_key_bits_and_budget_exact():
     d = np.array([1e-9, 0.5, 1.0, 3.0, 1e4, -1.0, 0.0], np.float32)
     np.testing.assert_array_equal(tb.quantize_depth(t(d), 23).numpy(),
                                   np.asarray(jb.quantize_depth(jnp.asarray(d), 23)).astype(np.int32))
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: enough for the dispatch."""
+
+    @property
+    def device(self):
+        return torch.device("cuda")
+
+
+# The projection's dispatch (ops/projection.py): csrc/project.cu's kernels for
+# CUDA tensors that need no autograd graph, the plain version otherwise.
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("need_grad", [False, True])
+def test_projection_dispatch_rule(monkeypatch, device, need_grad):
+    g = sphere_scene(n=64, seed=1).activate()
+    cam = Camera.look_at([0, 0.5, -3.0], [0, 0, 0], [0, 1, 0], 45.0, 96, 64)
+    means = g.means.detach()
+    if device == "cuda":
+        means = means.as_subclass(_OnCard)
+    g = dataclasses.replace(g, means=means.requires_grad_(need_grad))
+    taken = []
+    monkeypatch.setattr(projection, "project_splats_cuda", lambda *args: taken.append("kernels"))
+    monkeypatch.setattr(projection, "project_splats_plain", lambda *args: taken.append("plain"))
+    project_splats(g, cam)
+    assert taken == ["kernels" if device == "cuda" and not need_grad else "plain"]
+
+
+def test_projection_needs_graph():
+    g = sphere_scene(n=64, seed=1).activate()
+    cam = Camera.look_at([0, 0.5, -3.0], [0, 0, 0], [0, 1, 0], 45.0, 96, 64)
+    assert not projection.needs_graph(g, cam)
+    planar = dataclasses.replace(g, sh=tuple(g.sh[..., c] for c in range(3)))
+    leaves = {
+        "means": dataclasses.replace(g, means=g.means.clone().requires_grad_(True)),
+        "opacities": dataclasses.replace(g, opacities=g.opacities.clone().requires_grad_(True)),
+        "planar sh": dataclasses.replace(planar, sh=(*planar.sh[:2], planar.sh[2].clone().requires_grad_(True))),
+    }
+    for name, gg in leaves.items():
+        assert projection.needs_graph(gg, cam), name
+        with torch.no_grad():
+            assert not projection.needs_graph(gg, cam), name
+    view = cam.view.clone().requires_grad_(True)
+    assert projection.needs_graph(g, dataclasses.replace(cam, view=view))
+    assert projection.needs_graph(g, cam, model=torch.eye(4).requires_grad_(True))
+
+
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("name", list(SETTINGS))
+def test_project_splats_on_cpu_takes_the_plain_version(scenes, name, grad):
+    _, _, pg = scenes
+    _, pcam = tp.cameras()
+    if grad:
+        pg = dataclasses.replace(pg, means=pg.means.clone().requires_grad_(True))
+    settings = RenderSettings(**SETTINGS[name])
+    before = projection.project_splats.launches
+    got = project_splats(pg, pcam, settings)
+    want = projection.project_splats_plain(pg, pcam, settings)
+    assert projection.project_splats.launches == before
+    assert got.center.requires_grad == grad
+    for field in got._fields:
+        torch.testing.assert_close(getattr(got, field), getattr(want, field), rtol=0, atol=0, equal_nan=True)
+
+
+def test_projection_sh_layouts_for_the_kernel():
+    # _sh_channels: per channel (pointer, splat stride, coefficient stride);
+    # only a contiguous, 16-byte aligned (N, 15, 3) tensor is staged.
+    sh = torch.zeros(256, 15, 3)
+    cols, staged = projection._sh_channels(sh, 256, 15, sh.device)
+    assert staged == (sh.data_ptr() % 16 == 0)
+    assert cols == [v for c in range(3) for v in (sh.data_ptr() + 4 * c, 45, 3)]
+    cols, staged = projection._sh_channels(sh[1:], 255, 15, sh.device)
+    assert not staged and cols[0] == sh.data_ptr() + 180
+    strided = sh.transpose(1, 2).contiguous().transpose(1, 2)
+    cols, staged = projection._sh_channels(strided, 256, 15, sh.device)
+    assert not staged and cols == [v for c in range(3) for v in (strided.data_ptr() + 4 * 15 * c, 45, 1)]
+    planar = tuple(sh[..., c] for c in range(3))
+    cols, staged = projection._sh_channels(planar, 256, 8, sh.device)
+    assert not staged and cols == [v for c in range(3) for v in (sh.data_ptr() + 4 * c, 45, 3)]
+    assert not projection._sh_channels(sh[:, :8], 256, 8, sh.device)[1]
+    with pytest.raises(ValueError):
+        projection._sh_channels(sh[:, :3], 256, 8, sh.device)
+    with pytest.raises(ValueError):
+        projection._sh_channels(sh.double(), 256, 15, sh.device)
+
+
+def _c_parameters(source: str, fn: str) -> int:
+    """Number of parameters of the C function ``fn`` defined in ``source``."""
+    head = source[source.index(f"int {fn}("):]
+    return head[: head.index(")")].count(",") + 1
+
+
+def test_cuda_build_names_the_projection_kernels():
+    assert "project.cu" in cuda_build.SOURCES
+    sigs = cuda_build.SIGNATURES["project"]
+    assert set(sigs) == {"project_geom_launch", "project_sh_launch", "project_error_string"}
+    source = (cuda_build.CSRC / "project.cu").read_text()
+    for fn in ("project_geom_launch", "project_sh_launch"):
+        assert len(sigs[fn][1]) == _c_parameters(source, fn), fn
+    assert "const char* project_error_string(int status)" in source

@@ -7,6 +7,12 @@ over leading batch dims (:func:`covariance3d`, :func:`ewa_project`,
 planar (N,) columns, which repeats them term for term.  Every product is
 written out elementwise: no matrix product, so no TF32 or library summation
 order enters the pixel-scale values.
+
+Plain PyTorch, and the projection's CPU and autograd path: on CUDA tensors
+that need no autograd graph ``projection.project_splats`` takes the
+``project_geom`` kernel of ``csrc/project.cu`` instead, which repeats
+:func:`project_covariance_planar` and :func:`_decompose` operation for
+operation and equals them bit for bit on the card.
 """
 
 from __future__ import annotations

@@ -19,11 +19,13 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 SOURCES = (
     "pair_table.cu", "pair_expand.cu", "expand_probe.cu", "composite_fwd.cu", "composite_bwd.cu",
-    "run_reduce.cu",
+    "run_reduce.cu", "project.cu",
 )
 
 # --fmad=false: no multiply-add contraction, so every kernel rounds once per
@@ -79,6 +81,17 @@ SIGNATURES = {
     "run_reduce": {
         "run_reduce_launch": (_I, [_P, _L, _I, _P, _I, _P, _P]),
         "run_reduce_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "project": {
+        "project_geom_launch": (
+            _I, [_P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _I, _F, _F, _F, _F, _F, _F, _F, _F,
+                 _F, _P, _P, _P],
+        ),
+        "project_sh_launch": (
+            _I, [_P, _L, _L, _P, _L, _L, _P, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _P, _L, _L, _P,
+                 _L, _L, _I, _I, _I, _F, _P, _P],
+        ),
+        "project_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 
@@ -143,6 +156,14 @@ def library(name: str) -> ctypes.CDLL:
             getattr(lib, fn).argtypes = argtypes
         _loaded[name] = lib
     return lib
+
+
+def operand(x: torch.Tensor, name: str, shape: tuple, device, dtype=torch.float32) -> tuple:
+    """``(data_ptr, *strides)`` of a kernel's input, after checking its
+    shape, dtype and device (any strides are taken)."""
+    if tuple(x.shape) != shape or x.dtype != dtype or x.device != device:
+        raise ValueError(f"{name} must be {shape} {dtype} on {device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
+    return x.data_ptr(), *x.stride()
 
 
 def check(lib: ctypes.CDLL, name: str, status: int, what: str) -> None:

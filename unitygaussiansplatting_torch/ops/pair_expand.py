@@ -93,16 +93,6 @@ def prepare_table_plain(proj, width: int, height: int, config: RasterizeConfig):
     return table.detach(), bounds, num_real
 
 
-def _column(x, name: str, n: int, width: int | None, device):
-    """``(data_ptr, *strides)`` of one projected column, checked."""
-    want = (n,) if width is None else (n, width)
-    dtype = torch.bool if name == "valid" else torch.float32
-    if x.shape != want or x.dtype != dtype or x.device != device:
-        raise ValueError(f"proj.{name} must be {want} {dtype} on {device}, got {tuple(x.shape)} {x.dtype} "
-                         f"on {x.device}")
-    return x.data_ptr(), *x.stride()
-
-
 def scan_bounds(bounds):
     """The run bounds from ``(0, slot counts...)``: one inclusive
     ``torch.cumsum``, in place.  A library scan outside any kernel, as the
@@ -137,11 +127,12 @@ def prepare_table(proj, width: int, height: int, config: RasterizeConfig):
     n = proj.depth.shape[0]
     if proj.depth.dim() != 1 or n >= 2**31:
         raise ValueError(f"proj.depth must be (N,) with N < 2^31, got {tuple(proj.depth.shape)}")
+    op = cuda_build.operand
     cols = [
-        *_column(proj.center, "center", n, 2, dev), *_column(proj.axis1, "axis1", n, 2, dev),
-        *_column(proj.axis2, "axis2", n, 2, dev), *_column(proj.color, "color", n, 3, dev),
-        *_column(proj.opacity, "opacity", n, None, dev), *_column(proj.depth, "depth", n, None, dev),
-        *_column(proj.valid, "valid", n, None, dev),
+        *op(proj.center, "proj.center", (n, 2), dev), *op(proj.axis1, "proj.axis1", (n, 2), dev),
+        *op(proj.axis2, "proj.axis2", (n, 2), dev), *op(proj.color, "proj.color", (n, 3), dev),
+        *op(proj.opacity, "proj.opacity", (n,), dev), *op(proj.depth, "proj.depth", (n,), dev),
+        *op(proj.valid, "proj.valid", (n,), dev, torch.bool),
     ]
     tiles_x, tiles_y = tile_grid(width, height, config)
     table = torch.empty((TABLE_ROWS, n), dtype=torch.float32, device=dev)

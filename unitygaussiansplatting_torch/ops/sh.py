@@ -4,6 +4,10 @@
 planar (..., 15) channel tensors (what ``io.device_asset.decode_device``
 gives with ``planar_sh=True``).  The DC term is carried separately as the
 base color ``sh0 * SH_C0 + 0.5``.
+
+Plain PyTorch; on CUDA tensors that need no autograd graph the projection
+shades with the ``project_sh`` kernel of ``csrc/project.cu`` instead, which
+repeats :func:`shade_sh` term for term.
 """
 
 from __future__ import annotations
