@@ -690,3 +690,37 @@ def test_projection_launches_and_host_syncs_of_a_frame(device, tmp_path):
     assert sum("project_geom" in k for k in kernels) == 1 and sum("project_sh" in k for k in sh) == 1
     assert len(kernels) <= 6 and set(sh) <= set(kernels)
     assert len(counts["plain"][0]) > 100
+
+
+@pytest.mark.cuda
+def test_projection_under_a_model_and_a_multi_object_frame_wait_for_nothing_more(device):
+    # A model's inverse rotation and origin read back from the card, once a
+    # matrix: a projection under a reused model waits for nothing, and a
+    # frame of several objects with a host view waits for the view's
+    # upload alone, however many objects it holds.
+    g, cam, model, _ = projection_scene(device, "model")
+    projection.project_splats(g, cam, model=model)  # builds and loads the kernels
+    torch.cuda.synchronize()
+    assert _sync_warnings(lambda: projection.project_splats(g, cam, model=model)) == 0
+    host_cam = Camera.look_at([0, 0.5, -3.0], [0, 0, 0], [0, 1, 0], 45.0, WIDTH, HEIGHT)
+    models = [model, None, 0.5 * model]
+    models[2][3, 3] = 1.0
+    renderer.render_multi([g] * 3, host_cam, models=models, device=device)
+    torch.cuda.synchronize()
+    before = projection.project_splats.launches
+    assert _sync_warnings(lambda: renderer.render_multi([g] * 3, host_cam, models=models, device=device)) == 1
+    assert projection.project_splats.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_model_constants_are_kept_per_matrix_until_it_is_edited(device):
+    model = torch.tensor([[0.0, 0.0, 2.0, 1.0], [0.0, 1.0, 0.0, 2.0], [-2.0, 0.0, 0.0, 3.0], [0.0, 0.0, 0.0, 1.0]],
+                         device=device)
+    inv, origin = projection.model_constants(model)
+    assert origin == (1.0, 2.0, 3.0)
+    assert torch.allclose(inv @ model[:3, :3], torch.eye(3, device=device), atol=1e-6)
+    assert projection.model_constants(model)[0] is inv
+    assert projection.model_constants(model.clone())[0] is not inv
+    model[0, 3] = 5.0
+    inv2, origin2 = projection.model_constants(model)
+    assert origin2 == (5.0, 2.0, 3.0) and inv2 is not inv and torch.equal(inv2, inv)

@@ -24,7 +24,7 @@ from torch.profiler import record_function
 
 from ..ops import composite as composite_ops
 from ..ops.binning import bin_splats, pair_budget, slot_demand, tile_rects
-from ..ops.projection import project_splats
+from ..ops.projection import model_constants, project_splats
 from ..ops.rasterize_cuda import rasterize
 from ..ops.rasterize_ref import rasterize_reference
 from ..ops.rasterize_tiles import rasterize_tiles_torch
@@ -234,27 +234,40 @@ def render_multi(
     first), then by index; each object is depth-sorted on its own, and the
     objects composite front to back into one target ("under" blending).
     Splats of different objects do not interleave in depth, as in the
-    reference.  The origins' depths are one host read a frame.  The backend
+    reference.  The order is made on the host, from each model's origin
+    (read from the card once a matrix, :func:`model_constants`) and the
+    caller's view, so a frame of reused matrices and a host view waits for
+    nothing but the view's upload.  The backend
     defaults to ``"cuda"``; the JAX package's default, its XLA tile path, is
     ``"torch"`` here.  Runs on ``device`` (CUDA unless told otherwise).
+
+    The ordering is the ``torch.profiler`` range ``splat_order``; each
+    object's :func:`render` is a ``splat_object`` range (holding the
+    ranges of :func:`render_with_stats`) and its composite into the frame a
+    ``splat_under`` range.  ``ViewerSession.frame`` of a scene of several
+    objects wraps the whole call in ``splat_frame``.
     """
     dev = resolve_device(device)
-    camera = camera.to(dev)
     n = len(clouds)
     settings_list = settings_list or [RenderSettings()] * n
     models = [None if m is None else torch.as_tensor(m, dtype=torch.float32).to(dev) for m in (models or [None] * n)]
-    origins = torch.zeros((n, 3), device=dev)
-    for i, m in enumerate(models):
-        if m is not None:
-            origins[i] = m[:3, 3]
-    depths = camera.world_to_view(origins)[:, 2].tolist()
-    explicit = render_order or [0.0] * n
-    order = sorted((-explicit[i], depths[i], i) for i in range(n))
+    with record_function("splat_order"):
+        # On the host: the origins as model_constants keeps them, the view
+        # as the caller gave it (read back only if it lives on the card).
+        origins = torch.tensor([(0.0, 0.0, 0.0) if m is None else model_constants(m)[1] for m in models],
+                               dtype=torch.float32)
+        host_camera = dataclasses.replace(camera, view=camera.view.detach().to("cpu", torch.float32))
+        depths = host_camera.world_to_view(origins)[:, 2].tolist()
+        explicit = render_order or [0.0] * n
+        order = sorted((-explicit[i], depths[i], i) for i in range(n))
+    camera = camera.to(dev)
 
     accum = torch.zeros((camera.height, camera.width, 4), dtype=torch.float32, device=dev)
     for _, _, i in order:
-        rt = render(clouds[i], camera, settings_list[i], config, backend, model=models[i], device=dev)
-        accum = accum + (1.0 - accum[..., 3:4]) * rt  # new content goes behind what is drawn
+        with record_function("splat_object"):
+            rt = render(clouds[i], camera, settings_list[i], config, backend, model=models[i], device=dev)
+        with record_function("splat_under"):
+            accum = accum + (1.0 - accum[..., 3:4]) * rt  # new content goes behind what is drawn
     return accum
 
 

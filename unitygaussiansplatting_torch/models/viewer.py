@@ -14,6 +14,11 @@ idle.  :class:`ViewerSession` keeps the last frame, keyed on the pose and
 the display settings, and hands it back without touching the card; any
 change of pose, settings or scene renders a fresh frame through
 :func:`render`.
+
+A session may also hold a scene of several objects (:class:`SplatObject`:
+a cloud, its object->world matrix and its render order, one
+``GaussianSplatRenderer`` of the reference each); a fresh frame of such a
+scene renders through :func:`render_multi`, with the same memo.
 """
 
 from __future__ import annotations
@@ -25,8 +30,22 @@ import torch
 from torch.profiler import record_function
 
 from ..utils.config import RasterizeConfig, RenderSettings
+from ..utils.device import resolve_device
 from .camera import Camera
-from .renderer import render
+from .renderer import render, render_multi
+
+
+@dataclasses.dataclass(frozen=True)
+class SplatObject:
+    """One object of a viewer's scene: a cloud (``Gaussians`` or
+    ``DeviceAsset``), its (4, 4) object->world ``model`` matrix (None: the
+    identity) and its ``render_order`` (higher in front), as a
+    ``GaussianSplatRenderer`` of the reference holds them
+    (GaussianSplatRenderer.cs:215-251)."""
+
+    gaussians: object
+    model: torch.Tensor | None = None
+    render_order: float = 0.0
 
 
 @dataclasses.dataclass
@@ -43,6 +62,8 @@ class ViewerSession:
     >>> img = sess.frame(view=cam.view)                   # full render
     >>> img = sess.frame(view=cam.view)                   # cache hit, free
     >>> img = sess.frame(view=cam2.view, opacity_scale=2) # full render
+    >>> scene = [SplatObject(g1), SplatObject(g2, model=m2, render_order=1.0)]
+    >>> multi = ViewerSession(scene, base_camera)         # render_multi frames
 
     The memo's key is the float32 bytes of ``view``, ``splat_scale`` and
     ``opacity_scale``: reading a 4x4 view that lives on the card is one
@@ -50,6 +71,11 @@ class ViewerSession:
     the same tensor object and launches nothing.  Frames render on
     ``device`` (CUDA unless told otherwise); ``backend`` defaults to
     ``"cuda"``, the JAX package's ``"pallas"``.
+
+    ``gaussians`` is one cloud, rendered by :func:`render`, or a list of
+    :class:`SplatObject`, rendered by :func:`render_multi` with the session's
+    settings for every object.  The objects' model matrices are moved to
+    ``device`` once, so that a frame uploads nothing but its view.
     """
 
     def __init__(
@@ -61,15 +87,25 @@ class ViewerSession:
         backend: str = "cuda",
         device=None,
     ):
-        self._g = gaussians
+        self._device = device
+        self._g = self._scene(gaussians)
         self._camera = camera
         self._settings = settings
         self._config = config
         self._backend = backend
-        self._device = device
         self.stats = ViewerStats()
         self._cache_key: bytes | None = None
         self._cache_img: torch.Tensor | None = None
+
+    def _scene(self, gaussians):
+        """One cloud as it is; a list of objects with their model matrices
+        as float32 on the session's device."""
+        if not isinstance(gaussians, (list, tuple)):
+            return gaussians
+        dev = resolve_device(self._device)
+        return [dataclasses.replace(o, model=None if o.model is None
+                                    else torch.as_tensor(o.model, dtype=torch.float32).to(dev))
+                for o in gaussians]
 
     @staticmethod
     def _key(view, splat_scale, opacity_scale) -> bytes:
@@ -99,7 +135,12 @@ class ViewerSession:
                 splat_scale=float(np.float32(splat_scale)),
                 opacity_scale=float(np.float32(opacity_scale)),
             )
-            img = render(self._g, cam, settings, self._config, self._backend, device=self._device)
+            if isinstance(self._g, list):
+                img = render_multi([o.gaussians for o in self._g], cam, [settings] * len(self._g), self._config,
+                                   self._backend, render_order=[o.render_order for o in self._g],
+                                   models=[o.model for o in self._g], device=self._device)
+            else:
+                img = render(self._g, cam, settings, self._config, self._backend, device=self._device)
             self.stats.rendered += 1
             self._cache_key = key
             self._cache_img = img
@@ -111,6 +152,7 @@ class ViewerSession:
         self._cache_img = None
 
     def update_gaussians(self, gaussians) -> None:
-        """Swap the scene (edits/training step); invalidates the cache."""
-        self._g = gaussians
+        """Swap the scene (edits/training step): one cloud or a list of
+        :class:`SplatObject`; invalidates the cache."""
+        self._g = self._scene(gaussians)
         self.invalidate()

@@ -16,6 +16,7 @@ equal it bit for bit on the card.
 
 from __future__ import annotations
 
+import weakref
 from typing import TYPE_CHECKING, NamedTuple
 
 import numpy as np
@@ -56,6 +57,32 @@ def affine(p: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     x, y, z = p[..., 0], p[..., 1], p[..., 2]
     rows = [x * m[i, 0] + y * m[i, 1] + z * m[i, 2] + m[i, 3] for i in range(3)]
     return torch.stack(rows, dim=-1)
+
+
+_MODELS: dict[int, tuple] = {}
+
+
+def model_constants(model: torch.Tensor) -> tuple[torch.Tensor, tuple[float, float, float]]:
+    """The inverse of a (4, 4) object->world matrix's rotation block, on the
+    matrix's device, and the matrix's origin (its translation) as host floats.
+
+    Both read back from the card (the inverse's error check, the origin
+    itself).  So for a matrix on the card they are derived once and kept
+    while the tensor lives and is not edited in place (its version
+    counter): frames that reuse their objects' matrices wait for neither.
+    A matrix on the host is derived anew at every call.
+    """
+    if model.device.type == "cpu":
+        m = model.detach()
+        return torch.linalg.inv(m[:3, :3]), tuple(m[:3, 3].tolist())
+    key, stamp = id(model), (model.data_ptr(), model._version)
+    kept = _MODELS.get(key)
+    if kept is None or kept[0]() is not model or kept[1] != stamp:
+        m = model.detach()
+        kept = (weakref.ref(model, lambda _, k=key: _MODELS.pop(k, None)), stamp, torch.linalg.inv(m[:3, :3]),
+                tuple(m[:3, 3].tolist()))
+        _MODELS[key] = kept
+    return kept[2], kept[3]
 
 
 def project_splats(
@@ -220,7 +247,7 @@ def project_splats_cuda(
     if model is not None:
         op(model, "model", (4, 4), dev)
         mv = view @ model
-        inv_rot = torch.linalg.inv(model[:3, :3])
+        inv_rot = model_constants(model)[0]
     else:
         mv, inv_rot = view, None
     kill = (None, 0) if kill_mask is None else op(kill_mask, "kill_mask", (n,), dev, torch.bool)
