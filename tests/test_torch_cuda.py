@@ -4,9 +4,10 @@ pipeline's device steps (the Morton order against its plain version, the
 k-means bit for bit across runs and near the CPU's), the debug point
 modes on the card equal to the CPU's, the tile path (``backend="torch"``)
 on the card against the CPU, strips on a world of one NCCL rank, and the
-``train_splats`` program's first steps on the card against the CPU, and the
+``train_splats`` program's first steps on the card against the CPU, the
 projection's two kernels (``csrc/project.cu``) against its plain version
-bit for bit, alone and in a frame.  K2's
+bit for bit, alone and in a frame, and the asset decode (``csrc/decode.cu``)
+against its plain version bit for bit, alone and in a frame.  K2's
 operands come from a per-splat kernel, and K2 runs in windows of slots; K1
 runs as clusters of CTAs and saves K3's checkpoints; K3 runs one block per
 segment from them.
@@ -26,6 +27,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from unitygaussiansplatting_torch.io import device_asset as tda  # noqa: E402
+from unitygaussiansplatting_torch.io import formats as TF  # noqa: E402
 from unitygaussiansplatting_torch.models.camera import Camera  # noqa: E402
 from unitygaussiansplatting_torch.ops import cuda_build  # noqa: E402
 from unitygaussiansplatting_torch.ops import pair_expand as pe  # noqa: E402
@@ -36,6 +39,7 @@ from unitygaussiansplatting_torch.ops import projection  # noqa: E402
 from unitygaussiansplatting_torch.ops import rasterize_cuda as rc  # noqa: E402
 from unitygaussiansplatting_torch.ops import rasterize_cuda_bwd as rb  # noqa: E402
 from unitygaussiansplatting_torch.ops.binning import depth_key_bits, pair_budget, tile_grid  # noqa: E402
+from unitygaussiansplatting_torch.ops.packing import as_i16, as_i32  # noqa: E402
 from unitygaussiansplatting_torch.ops.projection import ProjectedSplats, project_splats  # noqa: E402
 from unitygaussiansplatting_torch.utils.config import RasterizeConfig, RenderSettings  # noqa: E402
 from unitygaussiansplatting_torch.utils.synthetic import sphere_scene  # noqa: E402
@@ -724,3 +728,141 @@ def test_model_constants_are_kept_per_matrix_until_it_is_edited(device):
     model[0, 3] = 5.0
     inv2, origin2 = projection.model_constants(model)
     assert origin2 == (5.0, 2.0, 3.0) and inv2 is not inv and torch.equal(inv2, inv)
+
+
+# The asset decode's kernel against its plain version: every field bit for
+# bit (NaN against NaN), on assets of each preset's formats whose words are
+# random bits (every code of every field, the top bits included; random
+# float16 halves include infinities and NaNs), at splat counts of one
+# splat, one chunk, a chunk and one splat, and many chunks with a ragged
+# last one.
+DECODE_PRESETS = ("very_high", "high", "medium", "low", "very_low")
+DECODE_COUNTS = (1, 256, 4097, 200_003)
+
+
+def random_device_asset(preset: str, n: int, seed: int = 0, device="cpu") -> tda.DeviceAsset:
+    """A ``DeviceAsset`` of ``preset``'s formats holding random words, with a
+    chunk table of random finite ranges where the preset is chunked; BC7
+    colour is held as Norm8x4 words, as ``device_asset_from_asset`` holds it."""
+    p = TF.QUALITY_PRESETS[preset]
+    gen = torch.Generator().manual_seed(seed)
+
+    def u32(*shape):
+        return as_i32(torch.randint(0, 1 << 32, shape, generator=gen, dtype=torch.int64))
+
+    def u16(*shape):
+        return as_i16(torch.randint(0, 1 << 16, shape, generator=gen, dtype=torch.int64))
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen)
+
+    def vector(fmt):
+        return {TF.VectorFormat.Float32: lambda: torch.randn((n, 3), generator=gen), TF.VectorFormat.Norm16: lambda:
+                u16(n, 3), TF.VectorFormat.Norm11: lambda: u32(n), TF.VectorFormat.Norm6: lambda: u16(n)}[fmt]()
+
+    color = {TF.ColorFormat.Float32x4: lambda: torch.rand((n, 4), generator=gen),
+             TF.ColorFormat.Float16x4: lambda: u32(n, 2)}.get(p.color, lambda: u32(n))()
+    sh_idx = None
+    if TF.is_cluster_format(p.sh):
+        k = TF.SH_CLUSTER_COUNT[p.sh]
+        sh_q, sh_idx = u32(k, 24), torch.randint(0, k, (n,), generator=gen, dtype=torch.int32)
+    else:
+        sh_q = {TF.SHFormat.Float32: lambda: torch.randn((n, 45), generator=gen), TF.SHFormat.Float16: lambda:
+                u32(n, 24), TF.SHFormat.Norm11: lambda: u32(n, 15), TF.SHFormat.Norm6: lambda: u16(n, 15)}[p.sh]()
+    chunk_info = None
+    if TF.uses_chunks(p.pos, p.scale, p.color, p.sh):
+        c = -(-n // TF.CHUNK_SIZE)
+
+        def f16_ranges(lo, hi, width, count):
+            a = uniform(lo, hi, c, count)
+            return [tda._f16_pair(a[:, j], a[:, j] + uniform(0.01, width, c)) for j in range(count)]
+
+        pos_lo = uniform(-10.0, 0.0, c, 3)
+        pos = torch.stack([pos_lo, pos_lo + uniform(0.1, 10.0, c, 3)], dim=-1).reshape(c, 6)
+        chunk_info = torch.stack(
+            f16_ranges(-1.0, 0.5, 1.0, 4) + list(pos.view(torch.int32).unbind(-1)) + f16_ranges(0.0, 0.5, 1.0, 3)
+            + f16_ranges(-1.0, 0.0, 2.0, 3), dim=-1)
+    da = tda.DeviceAsset(
+        pos_q=vector(p.pos), rot_q=u32(n), scale_q=vector(p.scale), color_q=color, sh_q=sh_q, sh_idx=sh_idx,
+        chunk_info=chunk_info, splat_count=n, pos_format=p.pos, scale_format=p.scale, color_format=p.color,
+        sh_format=p.sh,
+    )
+    return da.to(device)
+
+
+def gaussians_differing(got, want) -> dict:
+    """``{field: entries whose bits differ}`` (NaN against NaN equal) for the
+    fields of two clouds that differ, SH as one tensor or three channels
+    alike; a field of another shape or layout counts every entry (-1: one
+    is planar, the other not)."""
+    out = {}
+    for f in ("means", "rotations", "scales", "opacities", "base_color", "sh"):
+        a, b = getattr(got, f), getattr(want, f)
+        if isinstance(a, tuple) != isinstance(b, tuple):
+            out[f] = -1
+            continue
+        pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+        count = sum(differing(x, y) if x.shape == y.shape and x.dtype == y.dtype == torch.float32 else x.numel()
+                    for x, y in pairs)
+        if count:
+            out[f] = count
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", DECODE_COUNTS)
+@pytest.mark.parametrize("layout", ["interleaved", "planar"])
+@pytest.mark.parametrize("preset", DECODE_PRESETS)
+def test_decode_kernel_matches_plain(device, preset, layout, n):
+    da = random_device_asset(preset, n, seed=n, device=device)
+    planar = layout == "planar"
+    before = tda.decode_device.launches
+    got = tda.decode_device(da, planar_sh=planar)
+    want = tda.decode_device_plain(da, planar_sh=planar)
+    torch.cuda.synchronize()
+    assert tda.decode_device.launches == before + 1
+    assert gaussians_differing(got, want) == {}
+    if isinstance(got.sh, torch.Tensor) and da.sh_format != TF.SHFormat.Float32:
+        # The layout project_sh stages: contiguous (N, 15, 3), 16-byte aligned.
+        assert projection._sh_channels(got.sh, n, 15, got.means.device)[1]
+    assert isinstance(got.sh, tuple) == (planar and da.sh_format in (TF.SHFormat.Norm11, TF.SHFormat.Norm6))
+
+
+def medium_asset_scene(device):
+    g = sphere_scene(n=1500, seed=0).to(device).activate()
+    cam = Camera.look_at([0, 0.5, -3.0], [0, 0, 0], [0, 1, 0], 45.0, WIDTH, HEIGHT)
+    return tda.encode_device(g, device=device), cam
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["interleaved", "planar"])
+def test_asset_frame_through_the_decode_kernel_equals_plain_decode(device, layout, monkeypatch):
+    da, cam = medium_asset_scene(device)
+    cfg = RasterizeConfig(decode_planar_sh=layout == "planar")
+    before = tda.decode_device.launches
+    got = render(da, cam, config=cfg, device=device)
+    assert tda.decode_device.launches == before + 1
+    want = render(tda.decode_device_plain(da, planar_sh=cfg.decode_planar_sh), cam, config=cfg, device=device)
+    assert torch.equal(got, want) and float(want[..., 3].max()) > 0.05
+    monkeypatch.setattr(tda, "decode_device", tda.decode_device_plain)
+    assert torch.equal(render(da, cam, config=cfg, device=device), want)
+
+
+@pytest.mark.cuda
+def test_asset_frame_launches_the_decode_once_and_waits_for_the_view_alone(device, tmp_path):
+    da, cam = medium_asset_scene(device)
+    render(da, cam, device=device)  # builds and loads the kernels
+    torch.cuda.synchronize()
+    before = tda.decode_device.launches
+    assert _sync_warnings(lambda: render(da, cam, device=device)) == 1  # the view's upload
+    assert tda.decode_device.launches == before + 1
+    torch.cuda.synchronize()
+    assert _sync_warnings(lambda: tda.decode_device(da)) == 0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        render(da, cam, device=device)
+        torch.cuda.synchronize()
+    trace = tmp_path / "asset.json"
+    prof.export_chrome_trace(str(trace))
+    decode = _launched_in(trace, "splat_decode")
+    assert len(decode) == 1 and "decode_kernel" in decode[0], decode

@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 import _torch_parity as tp  # noqa: E402
 from test_io import make_splats  # noqa: E402
 from test_torch_asset import encode_both  # noqa: E402
+from test_torch_cuda import DECODE_PRESETS, gaussians_differing, random_device_asset  # noqa: E402
 from test_torch_render import E2E_ATOL, E2E_FRACTION, E2E_MAX  # noqa: E402
 from unitygaussiansplatting_torch.io import asset as tas  # noqa: E402
 from unitygaussiansplatting_torch.io import bridge as tbr  # noqa: E402
@@ -27,6 +28,7 @@ from unitygaussiansplatting_torch.io import device_asset as tda  # noqa: E402
 from unitygaussiansplatting_torch.io import formats as TF  # noqa: E402
 from unitygaussiansplatting_torch.models.gaussians import Gaussians  # noqa: E402
 from unitygaussiansplatting_torch.models.renderer import render, suggest_pair_multiplier  # noqa: E402
+from unitygaussiansplatting_torch.ops import cuda_build  # noqa: E402
 from unitygaussiansplatting_torch.ops.sh import shade_sh  # noqa: E402
 from unitygaussiansplatting_torch.utils.config import RasterizeConfig  # noqa: E402
 from unitygaussiansplatting_torch.utils.convert import camera_from_numpy  # noqa: E402
@@ -107,6 +109,25 @@ def test_decode_device_matches_jax_and_host(quality):
     assert_gaussians_close(got, tbr.input_splats_to_gaussians(tas.decode_asset(tasset), **CPU))
     # Compression survives onto the device: footprint ~= blob bytes.
     assert da.device_bytes() == jd.device_bytes() <= tasset.total_bytes() * 1.6 + 4096
+
+
+@pytest.mark.parametrize("layout", ["interleaved", "planar"])
+@pytest.mark.parametrize("preset", DECODE_PRESETS)
+def test_decode_device_on_the_cpu_is_the_plain_version(preset, layout, monkeypatch):
+    # CPU words take decode_device_plain: nothing is built or launched.
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU path asked cuda_build for a kernel")
+
+    monkeypatch.setattr(cuda_build, "build", refuse)
+    monkeypatch.setattr(cuda_build, "library", refuse)
+    da = random_device_asset(preset, 4097, seed=7)
+    planar = layout == "planar"
+    before = tda.decode_device.launches
+    got = tda.decode_device(da, planar_sh=planar, **CPU)
+    assert tda.decode_device.launches == before
+    want = tda.decode_device_plain(da, planar_sh=planar, **CPU)
+    assert gaussians_differing(got, want) == {}
+    assert isinstance(got.sh, tuple) == (planar and preset in ("medium", "high"))  # Norm6 and Norm11 SH
 
 
 @pytest.mark.parametrize("kw", COMBOS, ids=["medium", "n16-n6-f16-n11", "float32", "sh-f16"])

@@ -365,3 +365,12 @@ def test_cuda_build_names_the_projection_kernels():
     for fn in ("project_geom_launch", "project_sh_launch"):
         assert len(sigs[fn][1]) == _c_parameters(source, fn), fn
     assert "const char* project_error_string(int status)" in source
+
+
+def test_cuda_build_names_the_decode_kernel():
+    assert "decode.cu" in cuda_build.SOURCES
+    sigs = cuda_build.SIGNATURES["decode"]
+    assert set(sigs) == {"decode_launch", "decode_error_string"}
+    source = (cuda_build.CSRC / "decode.cu").read_text()
+    assert len(sigs["decode_launch"][1]) == _c_parameters(source, "decode_launch")
+    assert "const char* decode_error_string(int status)" in source

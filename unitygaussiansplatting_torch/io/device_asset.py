@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as nnf
 
 from ..models.gaussians import Gaussians
+from ..ops import cuda_build
 from ..ops.activations import square_centered01
 from ..ops.packing import as_i16, as_i32
 from ..ops.quaternion import pack_smallest3, unpack_smallest3
@@ -252,11 +253,29 @@ def decode_device(da: DeviceAsset, planar_sh: bool = False, device=None) -> Gaus
     """Per-frame decode on ``device`` (CUDA unless told otherwise):
     ``DeviceAsset`` -> activated ``Gaussians``.
 
-    The mirror of ``LoadSplatData`` (GaussianSplatting.hlsl:428-608).  The
-    per-splat math runs on planar 1-D columns, each output field stacked
-    once at the end, as the JAX package does.  ``planar_sh=True`` keeps
-    Norm11/Norm6 SH as a tuple of three planar (N, 15) channels, which
-    ``ops.sh.shade_sh`` shades bit-identically to the interleaved form.
+    The mirror of ``LoadSplatData`` (GaussianSplatting.hlsl:428-608).
+    ``planar_sh=True`` keeps Norm11/Norm6 SH as a tuple of three planar
+    (N, 15) channels, which ``ops.sh.shade_sh`` shades bit-identically to
+    the interleaved form.  On CUDA the words take one launch of
+    ``csrc/decode.cu`` (:func:`decode_device_cuda`, counted in
+    ``decode_device.launches``); on the CPU, :func:`decode_device_plain`.
+    """
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return decode_device_cuda(da.to(dev), planar_sh)
+    return decode_device_plain(da, planar_sh, dev)
+
+
+decode_device.launches = 0
+
+
+@torch.no_grad()
+def decode_device_plain(da: DeviceAsset, planar_sh: bool = False, device=None) -> Gaussians:
+    """Plain PyTorch version of :func:`decode_device`: the CPU path and the
+    kernel's oracle.
+
+    The per-splat math runs on planar 1-D columns, each output field stacked
+    once at the end, as the JAX package does.
     """
     da = da.to(resolve_device(device))
     n = da.splat_count
@@ -321,6 +340,77 @@ def decode_device(da: DeviceAsset, planar_sh: bool = False, device=None) -> Gaus
         base_color=torch.stack(col_cols[:3], dim=-1),
         sh=sh,
     )
+
+
+def _word_layouts(da: DeviceAsset) -> dict:
+    """``{field: (shape, dtype)}`` of the words :func:`decode_device_cuda` takes:
+    the layouts :func:`device_asset_from_asset` and :func:`encode_device` make."""
+    n = da.splat_count
+    i32, i16, f32 = torch.int32, torch.int16, torch.float32
+    vector = {F.VectorFormat.Float32: ((n, 3), f32), F.VectorFormat.Norm16: ((n, 3), i16),
+              F.VectorFormat.Norm11: ((n,), i32), F.VectorFormat.Norm6: ((n,), i16)}
+    color = {F.ColorFormat.Float32x4: ((n, 4), f32), F.ColorFormat.Float16x4: ((n, 2), i32),
+             F.ColorFormat.Norm8x4: ((n,), i32), F.ColorFormat.BC7: ((n,), i32)}
+    sh = {F.SHFormat.Float32: ((n, 45), f32), F.SHFormat.Float16: ((n, 24), i32), F.SHFormat.Norm11: ((n, 15), i32),
+          F.SHFormat.Norm6: ((n, 15), i16)}
+    layouts = dict(pos_q=vector[da.pos_format], rot_q=((n,), i32), scale_q=vector[da.scale_format],
+                   color_q=color[da.color_format])
+    if F.is_cluster_format(da.sh_format):
+        layouts.update(sh_q=((da.sh_q.shape[0], 24), i32), sh_idx=((n,), i32))
+    else:
+        layouts["sh_q"] = sh[da.sh_format]
+    if da.chunk_info is not None:  # at least a row a chunk, as _chunk_lerp needs
+        layouts["chunk_info"] = ((max(da.chunk_info.shape[0], -(-n // F.CHUNK_SIZE)), 16), i32)
+    return layouts
+
+
+def decode_device_cuda(da: DeviceAsset, planar_sh: bool = False) -> Gaussians:
+    """:func:`decode_device_plain`'s cloud from one launch of ``csrc/decode.cu``,
+    bit for bit, for a ``DeviceAsset`` on the card.
+
+    The outputs are new contiguous tensors (SH (N, 15, 3), 16-byte aligned,
+    or three (N, 15) channels under ``planar_sh`` for Norm11/Norm6 SH, as
+    the plain version gives them), except Float32 SH, which is the asset's
+    own words viewed as (N, 15, 3), as in the plain version.  Nothing waits
+    for the host.
+    """
+    dev = da.pos_q.device
+    n = da.splat_count
+    if n >= 2**31:
+        raise ValueError(f"decode_device_cuda takes fewer than 2^31 splats, got {n}")
+    for name, (shape, dtype) in _word_layouts(da).items():
+        t = getattr(da, name)
+        if t is None or (tuple(t.shape), t.dtype, t.device) != (shape, dtype, dev) or not t.is_contiguous():
+            got = None if t is None else f"{tuple(t.shape)} {t.dtype} on {t.device}, contiguous {t.is_contiguous()}"
+            raise ValueError(f"da.{name} must be contiguous {shape} {dtype} on {dev}, got {got}")
+    sh_kind = min(int(da.sh_format), int(F.SHFormat.Cluster64k))  # csrc/decode.cu's: every cluster format is 4
+    planar = planar_sh and da.sh_format in (F.SHFormat.Norm11, F.SHFormat.Norm6)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    if da.sh_format == F.SHFormat.Float32:
+        sh, sh_out = da.sh_q.reshape(n, 15, 3), (None, None, None)
+    elif planar:
+        sh = sh_out = (empty(n, 15), empty(n, 15), empty(n, 15))
+    else:
+        sh = empty(n, 15, 3)
+        sh_out = (sh, None, None)
+    g = Gaussians(means=empty(n, 3), rotations=empty(n, 4), scales=empty(n, 3), opacities=empty(n),
+                  base_color=empty(n, 3), sh=sh)
+    if n == 0:
+        return g
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = cuda_build.library("decode")
+    status = lib.decode_launch(
+        *(ptr(getattr(da, f)) for f in _WORD_FIELDS), n, int(da.pos_format), int(da.scale_format),
+        int(da.color_format), sh_kind, da.sh_q.shape[0], int(planar),
+        *(ptr(t) for t in (g.means, g.rotations, g.scales, g.opacities, g.base_color, *sh_out)),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.check(lib, "decode", status, "decode")
+    decode_device.launches += 1
+    return g
 
 
 # --- encode on the device

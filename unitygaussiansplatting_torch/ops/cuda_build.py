@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 SOURCES = (
     "pair_table.cu", "pair_expand.cu", "expand_probe.cu", "composite_fwd.cu", "composite_bwd.cu",
-    "run_reduce.cu", "project.cu",
+    "run_reduce.cu", "project.cu", "decode.cu",
 )
 
 # --fmad=false: no multiply-add contraction, so every kernel rounds once per
@@ -92,6 +92,11 @@ SIGNATURES = {
                  _L, _L, _I, _I, _I, _F, _P, _P],
         ),
         "project_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "decode": {
+        "decode_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _P]),
+        "decode_error_string": (ctypes.c_char_p, [_I]),
     },
 }
 
