@@ -147,11 +147,11 @@ def assert_table_matches_plain(proj, cfg):
     """The per-splat kernel against its plain version: the table bit for
     bit, the run bounds and the real pair count exact; returns the kernel's
     ``(table, bounds, num_real)``."""
-    before = pe.prepare_table.launches
+    before = cuda_build.launched.copy()
     table, bounds, real = pe.prepare_table(proj, WIDTH, HEIGHT, cfg)
     table_p, bounds_p, real_p = pe.prepare_table_plain(proj, WIDTH, HEIGHT, cfg)
     torch.cuda.synchronize()
-    assert pe.prepare_table.launches == before + 1
+    assert (cuda_build.launched - before)["pair_table_launch"] == 1
     assert table.shape == table_p.shape and table.is_contiguous()
     assert torch.equal(table.view(torch.int32), table_p.view(torch.int32))
     assert bounds.dtype == torch.int32 and torch.equal(bounds, bounds_p)
@@ -196,11 +196,11 @@ def test_k2_kernel_matches_plain(device, name):
     n = table.shape[1]
     # odd-k: a budget that is no multiple of the window, nor of four.
     k = 4 * K2_WINDOW + 3 if name == "odd-k" else pair_budget(n, cfg)
-    before = pe.expand_pairs.launches
+    before = cuda_build.launched.copy()
     comp, fields = pe.expand_pairs(table, bounds, k, WIDTH, HEIGHT, cfg)
     comp_p, fields_p = pe.expand_pairs_plain(table, bounds, k, WIDTH, HEIGHT, cfg)
     torch.cuda.synchronize()
-    assert pe.expand_pairs.launches == before + 1
+    assert (cuda_build.launched - before)["expand_pairs_launch"] == 1
     assert torch.equal(comp, comp_p)
     torch.testing.assert_close(fields, fields_p, **FIELD_TOL)
     demand = int(bounds[-1])
@@ -224,13 +224,13 @@ def sorted_inputs(device, cfg):
 def assert_k1_matches_plain(fields, starts, width, height, cfg, segment_steps=rb.SEGMENT_STEPS):
     """K1 and its checkpoints against the plain version's; returns the
     kernel's ``(raw, pairs_done, checkpoints)``."""
-    before = rc.composite_tiles.launches
+    before = cuda_build.launched.copy()
     raw, done, ck = rc.composite_tiles(fields, starts, width, height, cfg, checkpoints=True,
                                        segment_steps=segment_steps)
     raw_p, done_p, ck_p = rc.composite_tiles_plain(fields, starts, width, height, cfg, checkpoints=True,
                                                    segment_steps=segment_steps)
     torch.cuda.synchronize()
-    assert rc.composite_tiles.launches == before + 1
+    assert (cuda_build.launched - before)["composite_fwd_launch"] == 1
     torch.testing.assert_close(raw, raw_p, rtol=0, atol=K1_ATOL)
     assert torch.equal(done, done_p)
     assert torch.equal(ck.seg_starts, ck_p.seg_starts) and ck.state.shape == ck_p.state.shape
@@ -249,11 +249,11 @@ def test_k1_kernel_matches_plain(device, name):
     for steps in (1, rb.SEGMENT_STEPS):
         assert_k1_matches_plain(fields_s, starts, WIDTH, HEIGHT, cfg, steps)
     # Without checkpoints: the same image, nothing saved.
-    before = rc.composite_tiles.launches
+    before = cuda_build.launched.copy()
     raw, done, none = rc.composite_tiles(fields_s, starts, WIDTH, HEIGHT, cfg)
     raw_p, done_p, _ = rc.composite_tiles_plain(fields_s, starts, WIDTH, HEIGHT, cfg)
     torch.cuda.synchronize()
-    assert rc.composite_tiles.launches == before + 1 and none is None
+    assert (cuda_build.launched - before)["composite_fwd_launch"] == 1 and none is None
     torch.testing.assert_close(raw, raw_p, rtol=0, atol=K1_ATOL)
     assert torch.equal(done, done_p)
 
@@ -272,12 +272,12 @@ def assert_k3_matches_plain(args, ck, width, height, cfg):
     """K3 from K1's checkpoints against its plain version from the same
     ones: within ``k3_distance``'s bars, two launches bit-identical, its exits
     K1's."""
-    before = rb.composite_bwd.launches
+    before = cuda_build.launched.copy()
     grads, done = rb.composite_bwd(*args, width, height, cfg, checkpoints=ck)
     again, _ = rb.composite_bwd(*args, width, height, cfg, checkpoints=ck)
     plain, done_p = rb.composite_bwd_plain(*args, width, height, cfg, checkpoints=ck)
     torch.cuda.synchronize()
-    assert rb.composite_bwd.launches == before + 2
+    assert (cuda_build.launched - before)["composite_bwd_launch"] == 2
     assert torch.equal(grads.view(torch.int16) if cfg.pack_grads_bf16 else grads,
                        again.view(torch.int16) if cfg.pack_grads_bf16 else again)  # no atomics
     assert torch.equal(done, done_p) and torch.equal(done, ck.pairs_done)
@@ -348,10 +348,10 @@ def test_k1_k3_edge_scenes_match_plain(device, scene):
 @pytest.mark.parametrize("k", [1_000_003, 1 << 20])  # scalar stores, then 16- and 8-byte ones
 @pytest.mark.parametrize("keys_only", [False, True])
 def test_expand_probe_writes_zeros(device, keys_only, k):
-    before = pe.expand_probe.launches
+    before = cuda_build.launched.copy()
     comp, fields = pe.expand_probe(k, device, keys_only=keys_only)
     torch.cuda.synchronize()
-    assert pe.expand_probe.launches == before + 1
+    assert (cuda_build.launched - before)["expand_probe_launch"] == 1
     assert comp.shape == (k,) and not comp.any()
     assert fields is None if keys_only else (fields.shape == (10, k) and not fields.any())
 
@@ -365,11 +365,11 @@ def test_k4_kernel_matches_plain(device, name, dtype):
     dpairs = rb.composite_bwd_plain(*args, WIDTH, HEIGHT, cfg, checkpoints=ck)[0].to(dtype)
     for budget in (dpairs.shape[1], int(bounds[-1]) // 2):  # and truncated
         g = dpairs[:, :budget].contiguous()
-        before = rb.run_reduce.launches
+        before = cuda_build.launched.copy()
         got = rb.run_reduce(g, bounds)
         want = rb.run_reduce_plain(g, bounds)
         torch.cuda.synchronize()
-        assert rb.run_reduce.launches == before + 1
+        assert (cuda_build.launched - before)["run_reduce_launch"] == 1
         assert torch.equal(got, want)  # both add each run in slot order
 
 
@@ -384,11 +384,12 @@ def test_backward_on_card_matches_cpu(device, name):
     for dev in ("cpu", device):
         g = sphere_scene(n=1500, seed=0).activate()
         g = Gaussians(**{f: getattr(g, f).to(dev).requires_grad_(True) for f in fields})
-        before = rb.composite_bwd.launches, rb.run_reduce.launches
+        before = cuda_build.launched.copy()
         loss = (render(g, cam, config=cfg, device=dev) * wt.to(dev)).sum()
         loss.backward()
         if dev != "cpu":
-            assert (rb.composite_bwd.launches, rb.run_reduce.launches) == (before[0] + 1, before[1] + 1)
+            since = cuda_build.launched - before
+            assert since["composite_bwd_launch"] == since["run_reduce_launch"] == 1
         grads[dev] = {f: getattr(g, f).grad.cpu() for f in fields}
     for f in fields:
         want, got = grads["cpu"][f], grads[device][f]
@@ -590,11 +591,12 @@ def differing(x, y):
 def test_projection_kernels_match_plain(device, scene, settings):
     g, cam, model, kill = projection_scene(device, scene)
     st = RenderSettings(**PROJ_SETTINGS[settings])
-    before = projection.project_splats.launches
+    before = cuda_build.launched.copy()
     got = projection.project_splats(g, cam, st, model=model, kill_mask=kill)
     want = projection.project_splats_plain(g, cam, st, model=model, kill_mask=kill)
     torch.cuda.synchronize()
-    assert projection.project_splats.launches == before + 1
+    since = cuda_build.launched - before
+    assert since["project_geom_launch"] == since["project_sh_launch"] == 1
     # The SH kernel stages the interleaved, aligned scenes' SH and reads the others in place.
     staged = projection._sh_channels(g.sh, g.means.shape[0], 15, g.means.device)[1]
     assert staged == (scene not in ("planar-sh", "strided-sh", "misaligned-sh"))
@@ -614,13 +616,15 @@ def test_projection_kernels_match_plain(device, scene, settings):
 def test_projection_kernels_under_autograd_take_the_plain_version(device):
     g, cam, _, _ = projection_scene(device, "sphere")
     means = g.means.clone().requires_grad_(True)
-    before = projection.project_splats.launches
+    before = cuda_build.launched.copy()
     got = projection.project_splats(dataclasses.replace(g, means=means), cam)
-    assert projection.project_splats.launches == before
+    assert cuda_build.launched == before
     assert got.center.requires_grad
     with torch.no_grad():
         got = projection.project_splats(dataclasses.replace(g, means=means), cam)
-    assert projection.project_splats.launches == before + 1 and not got.center.requires_grad
+    since = cuda_build.launched - before
+    assert since["project_geom_launch"] == since["project_sh_launch"] == 1
+    assert not got.center.requires_grad
 
 
 @pytest.mark.cuda
@@ -663,6 +667,20 @@ def _launched_in(trace_path, name):
     return names
 
 
+def _frame_trace(frame, path):
+    """Write a ``torch.profiler`` trace of one call of ``frame`` to ``path``.
+    A first call runs in the profiler's warm-up step, whose records are
+    dropped: the device records the profiler loses as it starts (the first
+    launches of its window) fall there, not in the traced call."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA],
+                                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1),
+                                on_trace_ready=lambda prof: prof.export_chrome_trace(str(path))) as prof:
+        for _ in range(2):
+            frame()
+            torch.cuda.synchronize()
+            prof.step()
+
+
 @pytest.mark.cuda
 def test_projection_launches_and_host_syncs_of_a_frame(device, tmp_path):
     # A frame as a viewer renders it: the cloud on the card, the camera on
@@ -671,9 +689,10 @@ def test_projection_launches_and_host_syncs_of_a_frame(device, tmp_path):
     cam = Camera.look_at([0, 0.5, -3.0], [0, 0, 0], [0, 1, 0], 45.0, WIDTH, HEIGHT)
     render(g, cam, device=device)  # builds and loads the kernels
     torch.cuda.synchronize()
-    before = projection.project_splats.launches
+    before = cuda_build.launched.copy()
     assert _sync_warnings(lambda: render(g, cam, device=device)) == 1
-    assert projection.project_splats.launches == before + 1
+    since = cuda_build.launched - before
+    assert since["project_geom_launch"] == since["project_sh_launch"] == 1
     torch.cuda.synchronize()
     cam_card = cam.to(device)
     assert _sync_warnings(lambda: projection.project_splats(g, cam_card)) == 0
@@ -681,12 +700,8 @@ def test_projection_launches_and_host_syncs_of_a_frame(device, tmp_path):
     for path, project in (("kernels", projection.project_splats), ("plain", projection.project_splats_plain)):
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(renderer, "project_splats", project)
-            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                render(g, cam, device=device)
-                torch.cuda.synchronize()
-        trace = tmp_path / f"{path}.json"
-        prof.export_chrome_trace(str(trace))
+            trace = tmp_path / f"{path}.json"
+            _frame_trace(lambda: render(g, cam, device=device), trace)
         counts[path] = (_launched_in(trace, "splat_project"), _launched_in(trace, "splat_sh"))
     kernels, sh = counts["kernels"]
     print({path: (len(p), len(s)) for path, (p, s) in counts.items()}, kernels)
@@ -711,9 +726,10 @@ def test_projection_under_a_model_and_a_multi_object_frame_wait_for_nothing_more
     models[2][3, 3] = 1.0
     renderer.render_multi([g] * 3, host_cam, models=models, device=device)
     torch.cuda.synchronize()
-    before = projection.project_splats.launches
+    before = cuda_build.launched.copy()
     assert _sync_warnings(lambda: renderer.render_multi([g] * 3, host_cam, models=models, device=device)) == 1
-    assert projection.project_splats.launches == before + 3
+    since = cuda_build.launched - before
+    assert since["project_geom_launch"] == since["project_sh_launch"] == 3
 
 
 @pytest.mark.cuda
@@ -816,11 +832,11 @@ def gaussians_differing(got, want) -> dict:
 def test_decode_kernel_matches_plain(device, preset, layout, n):
     da = random_device_asset(preset, n, seed=n, device=device)
     planar = layout == "planar"
-    before = tda.decode_device.launches
+    before = cuda_build.launched.copy()
     got = tda.decode_device(da, planar_sh=planar)
     want = tda.decode_device_plain(da, planar_sh=planar)
     torch.cuda.synchronize()
-    assert tda.decode_device.launches == before + 1
+    assert (cuda_build.launched - before)["decode_launch"] == 1
     assert gaussians_differing(got, want) == {}
     if isinstance(got.sh, torch.Tensor) and da.sh_format != TF.SHFormat.Float32:
         # The layout project_sh stages: contiguous (N, 15, 3), 16-byte aligned.
@@ -839,9 +855,9 @@ def medium_asset_scene(device):
 def test_asset_frame_through_the_decode_kernel_equals_plain_decode(device, layout, monkeypatch):
     da, cam = medium_asset_scene(device)
     cfg = RasterizeConfig(decode_planar_sh=layout == "planar")
-    before = tda.decode_device.launches
+    before = cuda_build.launched.copy()
     got = render(da, cam, config=cfg, device=device)
-    assert tda.decode_device.launches == before + 1
+    assert (cuda_build.launched - before)["decode_launch"] == 1
     want = render(tda.decode_device_plain(da, planar_sh=cfg.decode_planar_sh), cam, config=cfg, device=device)
     assert torch.equal(got, want) and float(want[..., 3].max()) > 0.05
     monkeypatch.setattr(tda, "decode_device", tda.decode_device_plain)
@@ -853,16 +869,12 @@ def test_asset_frame_launches_the_decode_once_and_waits_for_the_view_alone(devic
     da, cam = medium_asset_scene(device)
     render(da, cam, device=device)  # builds and loads the kernels
     torch.cuda.synchronize()
-    before = tda.decode_device.launches
+    before = cuda_build.launched.copy()
     assert _sync_warnings(lambda: render(da, cam, device=device)) == 1  # the view's upload
-    assert tda.decode_device.launches == before + 1
+    assert (cuda_build.launched - before)["decode_launch"] == 1
     torch.cuda.synchronize()
     assert _sync_warnings(lambda: tda.decode_device(da)) == 0
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        render(da, cam, device=device)
-        torch.cuda.synchronize()
     trace = tmp_path / "asset.json"
-    prof.export_chrome_trace(str(trace))
+    _frame_trace(lambda: render(da, cam, device=device), trace)
     decode = _launched_in(trace, "splat_decode")
     assert len(decode) == 1 and "decode_kernel" in decode[0], decode

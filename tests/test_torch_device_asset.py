@@ -118,13 +118,13 @@ def test_decode_device_on_the_cpu_is_the_plain_version(preset, layout, monkeypat
     def refuse(*args, **kwargs):
         raise AssertionError("the CPU path asked cuda_build for a kernel")
 
-    monkeypatch.setattr(cuda_build, "build", refuse)
-    monkeypatch.setattr(cuda_build, "library", refuse)
+    for name in ("build", "load", "library", "launch"):
+        monkeypatch.setattr(cuda_build, name, refuse)
     da = random_device_asset(preset, 4097, seed=7)
     planar = layout == "planar"
-    before = tda.decode_device.launches
+    before = cuda_build.launched.copy()
     got = tda.decode_device(da, planar_sh=planar, **CPU)
-    assert tda.decode_device.launches == before
+    assert cuda_build.launched == before
     want = tda.decode_device_plain(da, planar_sh=planar, **CPU)
     assert gaussians_differing(got, want) == {}
     assert isinstance(got.sh, tuple) == (planar and preset in ("medium", "high"))  # Norm6 and Norm11 SH

@@ -6,7 +6,10 @@ into FMA and its transcendentals differ from PyTorch's by an ulp); the
 lattice rounding and every integer binning input exactly.
 """
 
+import contextlib
+import ctypes
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -293,10 +296,24 @@ def test_projection_dispatch_rule(monkeypatch, device, need_grad):
     assert taken == ["kernels" if device == "cuda" and not need_grad else "plain"]
 
 
-def test_projection_needs_graph():
+def test_projection_needs_graph(monkeypatch):
+    # One grad rule for the projection and rasterize: a leaf that requires
+    # grad anywhere among the projection's inputs (a planar SH channel, the
+    # view, the model) sends a card's cloud to the plain version, unless grad
+    # mode is off.
     g = sphere_scene(n=64, seed=1).activate()
+    g = dataclasses.replace(g, means=g.means.as_subclass(_OnCard))
     cam = Camera.look_at([0, 0.5, -3.0], [0, 0, 0], [0, 1, 0], 45.0, 96, 64)
-    assert not projection.needs_graph(g, cam)
+    taken = []
+    monkeypatch.setattr(projection, "project_splats_cuda", lambda *args: taken.append("kernels"))
+    monkeypatch.setattr(projection, "project_splats_plain", lambda *args: taken.append("plain"))
+
+    def route(gg, camera=cam, model=None):
+        taken.clear()
+        project_splats(gg, camera, model=model)
+        return taken[0]
+
+    assert not projection.needs_graph(None, g.means) and route(g) == "kernels"
     planar = dataclasses.replace(g, sh=tuple(g.sh[..., c] for c in range(3)))
     leaves = {
         "means": dataclasses.replace(g, means=g.means.clone().requires_grad_(True)),
@@ -304,12 +321,14 @@ def test_projection_needs_graph():
         "planar sh": dataclasses.replace(planar, sh=(*planar.sh[:2], planar.sh[2].clone().requires_grad_(True))),
     }
     for name, gg in leaves.items():
-        assert projection.needs_graph(gg, cam), name
+        assert route(gg) == "plain", name
         with torch.no_grad():
-            assert not projection.needs_graph(gg, cam), name
+            assert route(gg) == "kernels", name
     view = cam.view.clone().requires_grad_(True)
-    assert projection.needs_graph(g, dataclasses.replace(cam, view=view))
-    assert projection.needs_graph(g, cam, model=torch.eye(4).requires_grad_(True))
+    assert projection.needs_graph(view) and route(g, camera=dataclasses.replace(cam, view=view)) == "plain"
+    assert route(g, model=torch.eye(4).requires_grad_(True)) == "plain"
+    with torch.no_grad():
+        assert not projection.needs_graph(view)
 
 
 @pytest.mark.parametrize("grad", [False, True])
@@ -320,10 +339,10 @@ def test_project_splats_on_cpu_takes_the_plain_version(scenes, name, grad):
     if grad:
         pg = dataclasses.replace(pg, means=pg.means.clone().requires_grad_(True))
     settings = RenderSettings(**SETTINGS[name])
-    before = projection.project_splats.launches
+    before = cuda_build.launched.copy()
     got = project_splats(pg, pcam, settings)
     want = projection.project_splats_plain(pg, pcam, settings)
-    assert projection.project_splats.launches == before
+    assert cuda_build.launched == before
     assert got.center.requires_grad == grad
     for field in got._fields:
         torch.testing.assert_close(getattr(got, field), getattr(want, field), rtol=0, atol=0, equal_nan=True)
@@ -351,26 +370,141 @@ def test_projection_sh_layouts_for_the_kernel():
         projection._sh_channels(sh.double(), 256, 15, sh.device)
 
 
-def _c_parameters(source: str, fn: str) -> int:
-    """Number of parameters of the C function ``fn`` defined in ``source``."""
-    head = source[source.index(f"int {fn}("):]
-    return head[: head.index(")")].count(",") + 1
+# The entry points the wrappers call besides their launches, by source.
+KERNEL_QUERIES = {
+    "pair_expand.cu": ("expand_pairs_blocks_per_sm",),
+    "composite_fwd.cu": ("composite_fwd_cluster_size", "composite_fwd_pixels_per_thread",
+                         "composite_fwd_max_active_clusters"),
+    "composite_bwd.cu": ("composite_bwd_pixels_per_thread",),
+}
 
 
-def test_cuda_build_names_the_projection_kernels():
-    assert "project.cu" in cuda_build.SOURCES
-    sigs = cuda_build.SIGNATURES["project"]
-    assert set(sigs) == {"project_geom_launch", "project_sh_launch", "project_error_string"}
-    source = (cuda_build.CSRC / "project.cu").read_text()
-    for fn in ("project_geom_launch", "project_sh_launch"):
-        assert len(sigs[fn][1]) == _c_parameters(source, fn), fn
-    assert "const char* project_error_string(int status)" in source
+def _wrapper_launches() -> set:
+    """``(library, entry point)`` of every ``cuda_build.launch`` call in the port."""
+    package = cuda_build.CSRC.parent
+    calls = set()
+    for path in package.rglob("*.py"):
+        calls |= set(re.findall(r'cuda_build\.launch\(\s*"(\w+)",\s*"(\w+)"', path.read_text()))
+    return calls
 
 
-def test_cuda_build_names_the_decode_kernel():
-    assert "decode.cu" in cuda_build.SOURCES
-    sigs = cuda_build.SIGNATURES["decode"]
-    assert set(sigs) == {"decode_launch", "decode_error_string"}
-    source = (cuda_build.CSRC / "decode.cu").read_text()
-    assert len(sigs["decode_launch"][1]) == _c_parameters(source, "decode_launch")
-    assert "const char* decode_error_string(int status)" in source
+@pytest.mark.parametrize("source", cuda_build.SOURCES)
+def test_cuda_build_reads_every_entry_point(source):
+    # The functions of the source's extern "C" block, typed from their
+    # declarations: each launch returns its status and takes the stream
+    # last; the error string maps a status to the runtime's message.
+    sigs = cuda_build.c_signatures(source)
+    text = (cuda_build.CSRC / source).read_text()
+    block = text[text.index('extern "C" {'):text.index('}  // extern "C"')]
+    defined = set(re.findall(r"^[A-Za-z][^(;/]*?\b(\w+)\(", block, flags=re.M))
+    assert set(sigs) == defined and defined
+    name = source[:-3]
+    launches = {entry for lib, entry in _wrapper_launches() if lib == name}
+    assert launches and launches == {fn for fn in sigs if fn.endswith("_launch")}
+    for fn in launches:
+        restype, argtypes = sigs[fn]
+        assert restype is ctypes.c_int and argtypes[-1] is ctypes.c_void_p, fn
+    for fn in KERNEL_QUERIES.get(source, ()):
+        assert sigs[fn][0] is ctypes.c_int and all(a is ctypes.c_int for a in sigs[fn][1]), fn
+    assert sigs[f"{name}_error_string"] == (ctypes.c_char_p, [ctypes.c_int])
+    assert set(sigs) == {*launches, *KERNEL_QUERIES.get(source, ()), f"{name}_error_string"}
+
+
+# Every C spelling a parameter of the port's sources has, and its ctypes type.
+C_SPELLINGS = {
+    "const float*": ctypes.c_void_p, "float*": ctypes.c_void_p, "const int*": ctypes.c_void_p,
+    "int*": ctypes.c_void_p, "const long long*": ctypes.c_void_p, "long long*": ctypes.c_void_p,
+    "const unsigned*": ctypes.c_void_p, "const unsigned char*": ctypes.c_void_p,
+    "unsigned char*": ctypes.c_void_p, "const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+    "int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float,
+}
+
+
+def test_cuda_build_types_each_c_spelling(tmp_path, monkeypatch):
+    params = ",\n    ".join(f"{spelling} p{i}" for i, spelling in enumerate(C_SPELLINGS))
+    (tmp_path / "k.cu").write_text(f'extern "C" {{\n// a comment (int)\nconst char* k_error_string(int status) '
+                                   f'{{ return ""; }}\nint k_launch({params}) {{ {{ }} return 0; }}\n}}\n')
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    assert cuda_build.c_signatures("k.cu") == {
+        "k_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+        "k_launch": (ctypes.c_int, list(C_SPELLINGS.values())),
+    }
+
+
+@pytest.mark.parametrize("decl, named", [
+    ("int k_launch(double eps, void* stream)", "parameter eps is 'double'"),
+    ("int k_launch(size_t n, void* stream)", "parameter n is 'size_t'"),
+    ("int k_launch(const float* x, unsigned long n, void* stream)", "parameter n is 'unsigned long'"),
+    ("int k_launch(Params p, void* stream)", "parameter p is 'Params'"),
+    ("double k_launch(void* stream)", "the return type is 'double'"),
+])
+def test_cuda_build_refuses_an_unknown_c_type(tmp_path, monkeypatch, decl, named):
+    (tmp_path / "k.cu").write_text(f'struct Params {{ int a; }};\nextern "C" {{\n{decl} {{ return 0; }}\n}}\n')
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    with pytest.raises(ValueError, match=re.escape(f"k.cu: k_launch: {named}")):
+        cuda_build.c_signatures("k.cu")
+
+
+class _FakeLibrary:
+    """Stands for a loaded library: its launch returns ``status``."""
+
+    def __init__(self, status):
+        self.status, self.calls = status, []
+
+    def k_launch(self, *args):
+        self.calls.append(args)
+        return self.status
+
+    def k_error_string(self, status):
+        return b"invalid argument"
+
+
+@pytest.mark.parametrize("status", [0, 1])
+def test_cuda_build_launch_appends_the_stream_checks_and_counts(monkeypatch, status):
+    lib = _FakeLibrary(status)
+    monkeypatch.setitem(cuda_build._loaded, "k", lib)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: type("Stream", (), {"cuda_stream": 77})())
+    monkeypatch.setattr(cuda_build, "launched", cuda_build.collections.Counter())
+    if status:
+        with pytest.raises(RuntimeError, match=r"k_launch: CUDA error 1 \(invalid argument\)"):
+            cuda_build.launch("k", "k_launch", "cuda:0", 3, None)
+    else:
+        cuda_build.launch("k", "k_launch", "cuda:0", 3, None)
+    assert lib.calls == [(3, None, 77)]
+    assert cuda_build.launched == ({} if status else {"k_launch": 1})
+
+
+class _FakeClusterLibrary:
+    """Stands for K1's library: its occupancy query returns ``found``."""
+
+    def __init__(self, found):
+        self.found = found
+
+    def composite_fwd_max_active_clusters(self, npix, chunk):
+        return self.found
+
+    def composite_fwd_cluster_size(self, npix):
+        return 2
+
+    def composite_fwd_error_string(self, status):
+        return b"out of memory"
+
+
+@pytest.mark.parametrize("found, error", [
+    (-2, r"composite_tiles \(cluster occupancy\): CUDA error 2 \(out of memory\)"),
+    (0, r"cannot place a cluster of 2 CTAs for a tile of 256 pixels"),
+    (3, None),
+])
+def test_k1_cluster_check_raises_through_cuda_build(monkeypatch, found, error):
+    # K1's occupancy query reports a CUDA error as a negative status, read
+    # by the same rule as a launch's; no cluster that fits is an error too.
+    from unitygaussiansplatting_torch.ops import rasterize_cuda
+
+    monkeypatch.setitem(cuda_build._loaded, "composite_fwd", _FakeClusterLibrary(found))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    check = rasterize_cuda._check_clusters.__wrapped__
+    if error is None:
+        check(0, 256, 64)
+    else:
+        with pytest.raises(RuntimeError, match=error):
+            check(0, 256, 64)

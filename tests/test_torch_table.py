@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 import _torch_parity as tp  # noqa: E402
+from unitygaussiansplatting_torch.ops import cuda_build  # noqa: E402
 from unitygaussiansplatting_torch.ops import pair_expand as tpe  # noqa: E402
 from unitygaussiansplatting_tpu.ops import binning as jb  # noqa: E402
 from unitygaussiansplatting_tpu.ops import tile_common as jtc  # noqa: E402
@@ -114,10 +115,10 @@ def test_prepare_table_dispatch(sphere):
     # CPU tensors: the plain version, no launch; neither CPU nor CUDA: raise.
     proj = tp.proj_to_torch(sphere)
     _, cfg = tp.configs(**tp.HEADLINE)
-    before = tpe.prepare_table.launches
+    before = cuda_build.launched.copy()
     got = tpe.prepare_table(proj, tp.WIDTH, tp.HEIGHT, cfg)
     want = tpe.prepare_table_plain(proj, tp.WIDTH, tp.HEIGHT, cfg)
-    assert tpe.prepare_table.launches == before
+    assert cuda_build.launched == before
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     with pytest.raises(ValueError):
         tpe.prepare_table(type(proj)(*(x.to("meta") for x in proj)), tp.WIDTH, tp.HEIGHT, cfg)

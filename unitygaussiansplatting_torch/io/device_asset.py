@@ -258,15 +258,12 @@ def decode_device(da: DeviceAsset, planar_sh: bool = False, device=None) -> Gaus
     (N, 15) channels, which ``ops.sh.shade_sh`` shades bit-identically to
     the interleaved form.  On CUDA the words take one launch of
     ``csrc/decode.cu`` (:func:`decode_device_cuda`, counted in
-    ``decode_device.launches``); on the CPU, :func:`decode_device_plain`.
+    ``cuda_build.launched["decode_launch"]``); on the CPU, :func:`decode_device_plain`.
     """
     dev = resolve_device(device)
     if dev.type == "cuda":
         return decode_device_cuda(da.to(dev), planar_sh)
     return decode_device_plain(da, planar_sh, dev)
-
-
-decode_device.launches = 0
 
 
 @torch.no_grad()
@@ -401,15 +398,12 @@ def decode_device_cuda(da: DeviceAsset, planar_sh: bool = False) -> Gaussians:
     if n == 0:
         return g
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    lib = cuda_build.library("decode")
-    status = lib.decode_launch(
+    cuda_build.launch(
+        "decode", "decode_launch", dev,
         *(ptr(getattr(da, f)) for f in _WORD_FIELDS), n, int(da.pos_format), int(da.scale_format),
         int(da.color_format), sh_kind, da.sh_q.shape[0], int(planar),
         *(ptr(t) for t in (g.means, g.rotations, g.scales, g.opacities, g.base_color, *sh_out)),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    cuda_build.check(lib, "decode", status, "decode")
-    decode_device.launches += 1
     return g
 
 

@@ -1,18 +1,24 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
 Each ``.cu`` file has a plain C interface and is compiled by ``nvcc`` into
-its own shared library, loaded with ``ctypes``.  Libraries go into
+its own shared library, loaded with ``ctypes``; every function of its
+``extern "C"`` block is typed from its declaration there
+(:func:`c_signatures`), so a kernel's parameters are written once, in its
+source.  Libraries go into
 ``build/cuda/`` beside the package (listed in ``.gitignore``), named by a
 hash of the source and the flags, so an edited source is rebuilt at its next
 use and an unchanged one is not.  Nothing is compiled at import: the first
-wrapper call on a CUDA tensor (or :func:`build`) does it.
+wrapper call on a CUDA tensor (or :func:`build`) does it.  Wrappers
+launch through :func:`launch`, which counts each launch in :data:`launched`.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -37,68 +43,14 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_longlong
-_F = ctypes.c_float
+# ctypes type of each C value type a parameter or return value may have.
+# Any pointer parameter (the stream included) is c_void_p: ctypes would
+# otherwise pass a Python int as a 32-bit int.
+C_VALUE_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}
 
-# argtypes of every C entry point, by library.  Pointers and the stream are
-# c_void_p: ctypes would otherwise pass a Python int as a 32-bit int.
-SIGNATURES = {
-    "pair_table": {
-        "pair_table_launch": (
-            _I, [_P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _P, _L, _P, _L,
-                 _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P],
-        ),
-        "pair_table_error_string": (ctypes.c_char_p, [_I]),
-    },
-    "pair_expand": {
-        "expand_pairs_launch": (_I, [_P, _P, _I, _L, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P]),
-        "expand_pairs_blocks_per_sm": (_I, []),
-        "pair_expand_error_string": (ctypes.c_char_p, [_I]),
-    },
-    "expand_probe": {
-        "expand_probe_launch": (_I, [_L, _I, _P, _P, _P]),
-        "expand_probe_error_string": (ctypes.c_char_p, [_I]),
-    },
-    "composite_fwd": {
-        "composite_fwd_launch": (
-            _I, [_P, _L, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P, _I, _P, _P],
-        ),
-        "composite_fwd_cluster_size": (_I, [_I]),
-        "composite_fwd_pixels_per_thread": (_I, [_I]),
-        "composite_fwd_max_active_clusters": (_I, [_I, _I]),
-        "composite_fwd_error_string": (ctypes.c_char_p, [_I]),
-    },
-    "composite_bwd": {
-        "composite_bwd_launch": (
-            _I, [_P, _L, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P, _I, _P, _P,
-                 _P, _P, _P, _I, _I, _P, _P, _P],
-        ),
-        "composite_bwd_pixels_per_thread": (_I, [_I]),
-        "composite_bwd_error_string": (ctypes.c_char_p, [_I]),
-    },
-    "run_reduce": {
-        "run_reduce_launch": (_I, [_P, _L, _I, _P, _I, _P, _P]),
-        "run_reduce_error_string": (ctypes.c_char_p, [_I]),
-    },
-    "project": {
-        "project_geom_launch": (
-            _I, [_P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _I, _F, _F, _F, _F, _F, _F, _F, _F,
-                 _F, _P, _P, _P],
-        ),
-        "project_sh_launch": (
-            _I, [_P, _L, _L, _P, _L, _L, _P, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _P, _L, _L, _P,
-                 _L, _L, _I, _I, _I, _F, _P, _P],
-        ),
-        "project_error_string": (ctypes.c_char_p, [_I]),
-    },
-    "decode": {
-        "decode_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                               _P, _P]),
-        "decode_error_string": (ctypes.c_char_p, [_I]),
-    },
-}
+# Launches of every C entry point in this process, by name
+# ("project_geom_launch", ...): counted by :func:`launch`.
+launched: collections.Counter = collections.Counter()
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -149,18 +101,92 @@ def build(sources=SOURCES) -> dict:
     return results
 
 
+def _c_type(spelling: str, where: str, returned: bool = False):
+    """The ctypes type of a C type: a pointer parameter is ``c_void_p``, a
+    returned ``const char*`` is ``c_char_p``; anything else not in
+    :data:`C_VALUE_TYPES` raises."""
+    words = spelling.replace("*", " * ").split()
+    if returned and words == ["const", "char", "*"]:
+        return ctypes.c_char_p
+    if not returned and "*" in words:
+        return ctypes.c_void_p
+    kind = C_VALUE_TYPES.get(" ".join(words))
+    if kind is None:
+        raise ValueError(f"{where} is {' '.join(words)!r}, which has no ctypes binding here")
+    return kind
+
+
+def _declarations(text: str, source: str) -> list[str]:
+    """The head (return type, name, parameters) of every function defined
+    at the top level of ``text``'s ``extern "C"`` block, comments removed."""
+    text = re.sub(r"//[^\n]*|/\*.*?\*/", " ", text, flags=re.S)
+    start = text.find('extern "C" {')
+    if start < 0:
+        raise ValueError(f'{source}: no extern "C" block')
+    block = text[start + len('extern "C" {'):]
+    heads, depth, head = [], 1, 0
+    for i, ch in enumerate(block):
+        if ch == "{":
+            if depth == 1:
+                heads.append(block[head:i])
+            depth += 1
+        elif ch == "}":
+            depth -= 1
+            if depth == 0:
+                return heads
+            head = i + 1
+        elif ch == ";" and depth == 1:
+            head = i + 1
+    raise ValueError(f'{source}: the extern "C" block does not close')
+
+
+def c_signatures(source: str) -> dict[str, tuple]:
+    """``{function: (restype, argtypes)}`` of every function defined in the
+    ``extern "C"`` block of ``csrc/<source>``, read from its declaration.
+
+    Any pointer parameter is ``c_void_p``; ``int``, ``long long`` and
+    ``float`` are their ctypes types, and ``const char*`` is a return type.
+    Any other type raises, naming the file, the function and the
+    parameter."""
+    signatures = {}
+    for head in _declarations((CSRC / source).read_text(), source):
+        m = re.fullmatch(r"\s*(.*?)\b(\w+)\s*\(([^()]*)\)\s*", head, flags=re.S)
+        if m is None:
+            raise ValueError(f"{source}: cannot read the declaration {' '.join(head.split())!r}")
+        ret, fn, params = m.groups()
+        argtypes = []
+        for param in filter(str.strip, params.split(",")):
+            pm = re.fullmatch(r"\s*(.*?)\b(\w+)\s*", param, flags=re.S)
+            if pm is None or not pm[1].strip():
+                raise ValueError(f"{source}: {fn}: cannot read the parameter {' '.join(param.split())!r}")
+            argtypes.append(_c_type(pm[1], f"{source}: {fn}: parameter {pm[2]}"))
+        signatures[fn] = (_c_type(ret, f"{source}: {fn}: the return type", returned=True), argtypes)
+    return signatures
+
+
+def load(name: str, path: Path | None = None) -> ctypes.CDLL:
+    """Load the library of ``csrc/<name>.cu`` from ``path`` (by default its
+    build here, made first if needed), type its entry points from the
+    source, and make it the one :func:`library` and :func:`launch` use.
+
+    A ``path`` built with other ``-D`` flags serves as long as they leave
+    the ``extern "C"`` signatures alone."""
+    source = f"{name}.cu"
+    if path is None:
+        build((source,))
+        path = library_path(source)
+    lib = ctypes.CDLL(str(path))
+    for fn, (restype, argtypes) in c_signatures(source).items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+    _loaded[name] = lib
+    return lib
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _loaded.get(name)
-    if lib is None:
-        source = f"{name}.cu"
-        build((source,))
-        lib = ctypes.CDLL(str(library_path(source)))
-        for fn, (restype, argtypes) in SIGNATURES[name].items():
-            getattr(lib, fn).restype = restype
-            getattr(lib, fn).argtypes = argtypes
-        _loaded[name] = lib
-    return lib
+    return load(name) if lib is None else lib
 
 
 def operand(x: torch.Tensor, name: str, shape: tuple, device, dtype=torch.float32) -> tuple:
@@ -171,9 +197,19 @@ def operand(x: torch.Tensor, name: str, shape: tuple, device, dtype=torch.float3
     return x.data_ptr(), *x.stride()
 
 
-def check(lib: ctypes.CDLL, name: str, status: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error (a refused launch never runs,
-    and a later synchronize would not report it)."""
+def launch(name: str, entry: str, device, *args) -> None:
+    """Call the C entry point ``entry`` of ``csrc/<name>.cu`` with ``args``
+    and ``device``'s current stream as its last argument, raise if it
+    returned a CUDA error (a refused launch never runs, and a later
+    synchronize would not report it), and count it in :data:`launched`."""
+    lib = library(name)
+    raise_for(name, entry, getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream))
+    launched[entry] += 1
+
+
+def raise_for(name: str, what: str, status: int) -> None:
+    """Raise for ``what`` unless the CUDA status ``status`` is 0, with the
+    runtime's message for it, read through ``csrc/<name>.cu``."""
     if status != 0:
-        msg = getattr(lib, f"{name}_error_string")(status).decode()
-        raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
+        message = getattr(library(name), f"{name}_error_string")(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({message})")

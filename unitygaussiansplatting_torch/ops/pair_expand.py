@@ -138,18 +138,12 @@ def prepare_table(proj, width: int, height: int, config: RasterizeConfig):
     table = torch.empty((TABLE_ROWS, n), dtype=torch.float32, device=dev)
     bounds = torch.empty(n + 1, dtype=torch.int32, device=dev)
     num_real = torch.zeros((), dtype=torch.int32, device=dev)
-    lib = cuda_build.library("pair_table")
-    status = lib.pair_table_launch(
+    cuda_build.launch(
+        "pair_table", "pair_table_launch", dev,
         *cols, n, tiles_x, tiles_y, config.tile_w, config.tile_h, depth_key_bits(tiles_x * tiles_y, config),
         config.alpha_discard, expand_flags(config), table.data_ptr(), bounds.data_ptr(), num_real.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    cuda_build.check(lib, "pair_table", status, "prepare_table")
-    prepare_table.launches += 1
     return table, scan_bounds(bounds), num_real
-
-
-prepare_table.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -314,19 +308,13 @@ def expand_pairs(table, bounds, k: int, width: int, height: int, config: Rasteri
     num_tiles = tiles_x * tiles_y
     comp = torch.empty(k, dtype=torch.int64, device=table.device)
     fields = torch.empty((NUM_FIELDS, k), dtype=torch.float32, device=table.device)
-    lib = cuda_build.library("pair_expand")
-    status = lib.expand_pairs_launch(
+    cuda_build.launch(
+        "pair_expand", "expand_pairs_launch", table.device,
         table.data_ptr(), bounds.data_ptr(), n, k, tiles_x, num_tiles,
         config.tile_w, config.tile_h, depth_key_bits(num_tiles, config), config.alpha_discard,
         expand_flags(config), comp.data_ptr(), fields.data_ptr(),
-        torch.cuda.current_stream(table.device).cuda_stream,
     )
-    cuda_build.check(lib, "pair_expand", status, "expand_pairs")
-    expand_pairs.launches += 1
     return comp, fields
-
-
-expand_pairs.launches = 0
 
 
 def expand_probe_plain(k: int, device, keys_only: bool = False):
@@ -355,17 +343,11 @@ def expand_probe(k: int, device, keys_only: bool = False):
         raise ValueError(f"expand_probe runs on CPU or CUDA, got {device}")
     comp = torch.empty(k, dtype=torch.int64, device=device)
     fields = None if keys_only else torch.empty((NUM_FIELDS, k), dtype=torch.float32, device=device)
-    lib = cuda_build.library("expand_probe")
-    status = lib.expand_probe_launch(
+    cuda_build.launch(
+        "expand_probe", "expand_probe_launch", device,
         k, int(keys_only), comp.data_ptr(), None if keys_only else fields.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream,
     )
-    cuda_build.check(lib, "expand_probe", status, "expand_probe")
-    expand_probe.launches += 1
     return comp, fields
-
-
-expand_probe.launches = 0
 
 
 def sort_pairs(comp, fields, num_tiles: int, db: int):

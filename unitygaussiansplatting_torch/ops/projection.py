@@ -100,26 +100,21 @@ def project_splats(
     True kills a splat (deleted bits / cutouts, compute:204-220).
 
     CUDA tensors that need no autograd graph take the kernels of
-    ``csrc/project.cu`` (:func:`project_splats_cuda`, counted in
-    ``project_splats.launches``); everything else takes
+    ``csrc/project.cu`` (:func:`project_splats_cuda`); everything else takes
     :func:`project_splats_plain`.
     """
-    if g.means.device.type == "cuda" and not needs_graph(g, camera, model):
+    sh = g.sh if isinstance(g.sh, tuple) else (g.sh,)
+    inputs = (g.means, g.rotations, g.scales, g.opacities, g.base_color, *sh, camera.view, model)
+    if g.means.device.type == "cuda" and not needs_graph(*inputs):
         return project_splats_cuda(g, camera, settings, model, kill_mask)
     return project_splats_plain(g, camera, settings, model, kill_mask)
 
 
-project_splats.launches = 0
-
-
-def needs_graph(g: "Gaussians", camera: "Camera", model: torch.Tensor | None = None) -> bool:
-    """Whether autograd records the projection: grad mode is on and one of
-    its tensor inputs requires grad (``rasterize``'s ``need_grad``)."""
-    if not torch.is_grad_enabled():
-        return False
-    sh = g.sh if isinstance(g.sh, tuple) else (g.sh,)
-    inputs = (g.means, g.rotations, g.scales, g.opacities, g.base_color, *sh, camera.view, model)
-    return any(x is not None and x.requires_grad for x in inputs)
+def needs_graph(*inputs: torch.Tensor | None) -> bool:
+    """Whether autograd records an operation on ``inputs`` (None entries
+    skipped): grad mode is on and one of them requires grad.  The
+    projection and ``rasterize`` take their kernels' route only when not."""
+    return torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in inputs)
 
 
 def project_splats_plain(
@@ -253,18 +248,16 @@ def project_splats_cuda(
     kill = (None, 0) if kill_mask is None else op(kill_mask, "kill_mask", (n,), dev, torch.bool)
     splat_scale = np.float32(settings.splat_scale)
     splat_scale2 = float(splat_scale * splat_scale)  # squared in float32, as the plain version does
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = cuda_build.library("project")
 
     geo = torch.empty((10, n), dtype=torch.float32, device=dev)
     valid = torch.empty(n, dtype=torch.bool, device=dev)
-    status = lib.project_geom_launch(
+    cuda_build.launch(
+        "project", "project_geom_launch", dev,
         *means, *op(g.rotations, "g.rotations", (n, 4), dev), *op(g.scales, "g.scales", (n, 3), dev),
         mv.data_ptr(), *mv.stride(), *kill, n, camera.tan_fovx, camera.tan_fovy,
         CLAMP_FACTOR * camera.tan_fovx, CLAMP_FACTOR * camera.tan_fovy, camera.focal, -camera.focal,
-        float(camera.width), float(camera.height), splat_scale2, geo.data_ptr(), valid.data_ptr(), stream,
+        float(camera.width), float(camera.height), splat_scale2, geo.data_ptr(), valid.data_ptr(),
     )
-    cuda_build.check(lib, "project", status, "project_geom")
 
     with record_function("splat_sh"):
         flags = SH_ONLY * settings.sh_only | FP16_COLOR * settings.fp16_color
@@ -280,13 +273,12 @@ def project_splats_cuda(
             model_args = (None, 0, 0, None, 0, 0)
         position = camera.position
         shaded = torch.empty((4, n), dtype=torch.float32, device=dev)
-        status = lib.project_sh_launch(
+        cuda_build.launch(
+            "project", "project_sh_launch", dev,
             *means, *op(g.base_color, "g.base_color", (n, 3), dev), *op(g.opacities, "g.opacities", (n,), dev),
             *sh, position.data_ptr(), *position.stride(),
-            *model_args, n, settings.sh_order, flags, float(settings.opacity_scale), shaded.data_ptr(), stream,
+            *model_args, n, settings.sh_order, flags, float(settings.opacity_scale), shaded.data_ptr(),
         )
-        cuda_build.check(lib, "project", status, "project_sh")
-    project_splats.launches += 1
     return ProjectedSplats(
         depth=geo[0], center=geo[1:3].T, axis1=geo[3:5].T, axis2=geo[5:7].T, conic=geo[7:10].T,
         color=shaded[:3].T, opacity=shaded[3], valid=valid,

@@ -22,7 +22,7 @@ from ..utils.config import RasterizeConfig
 from . import cuda_build
 from .binning import tile_grid
 from .pair_expand import NUM_FIELDS, bin_and_prepare
-from .projection import ProjectedSplats
+from .projection import ProjectedSplats, needs_graph
 from .rasterize_cuda_bwd import (
     SEGMENT_STEPS, Checkpoints, composite_bwd, run_reduce, segment_capacity, segment_starts,
 )
@@ -108,8 +108,7 @@ def _check_clusters(device: int, npix: int, chunk: int) -> None:
     lib = cuda_build.library("composite_fwd")
     with torch.cuda.device(device):
         found = lib.composite_fwd_max_active_clusters(npix, chunk)
-    if found < 0:
-        cuda_build.check(lib, "composite_fwd", -found, "composite_tiles (cluster occupancy)")
+    cuda_build.raise_for("composite_fwd", "composite_tiles (cluster occupancy)", max(-found, 0))
     if found == 0:
         raise RuntimeError(f"composite_tiles: the card cannot place a cluster of "
                            f"{lib.composite_fwd_cluster_size(npix)} CTAs for a tile of {npix} pixels")
@@ -165,21 +164,16 @@ def composite_tiles(fields, tile_starts, width: int, height: int, config: Raster
         seg_starts = segment_starts(tile_starts, config.chunk_size, segment_steps)
         cap = segment_capacity(fields.shape[1], num_tiles, config.chunk_size, segment_steps)
         state = torch.empty((cap, 4, npix), dtype=torch.float32, device=dev)
-    status = lib.composite_fwd_launch(
+    cuda_build.launch(
+        "composite_fwd", "composite_fwd_launch", dev,
         fields.data_ptr(), fields.shape[1], tile_starts.data_ptr(), tile_order.data_ptr(), num_tiles,
         tiles_x, config.tile_w, config.tile_h, config.chunk_size, config.transmittance_eps,
         config.alpha_discard, config.alpha_max, int(config.quad_clip),
         raw.data_ptr(), pairs_done.data_ptr(), seg_starts.data_ptr() if checkpoints else None,
         segment_steps, state.data_ptr() if checkpoints else None,
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    cuda_build.check(lib, "composite_fwd", status, "composite_tiles")
-    composite_tiles.launches += 1
     ckpt = Checkpoints(state, seg_starts, pairs_done, segment_steps) if checkpoints else None
     return raw, pairs_done, ckpt
-
-
-composite_tiles.launches = 0
 
 
 def untile(raw, width: int, height: int, config: RasterizeConfig):
@@ -251,7 +245,6 @@ class Rasterize(torch.autograd.Function):
 def rasterize(proj: ProjectedSplats, width: int, height: int, config: RasterizeConfig):
     """Differentiable rasterization through :class:`Rasterize`; ``(image, demand)``."""
     inputs = (proj.center, proj.axis1, proj.axis2, proj.color, proj.opacity)
-    need_grad = torch.is_grad_enabled() and any(x.requires_grad for x in inputs)
     return Rasterize.apply(
-        *inputs, proj.depth, proj.valid, proj.conic, width, height, config, need_grad,
+        *inputs, proj.depth, proj.valid, proj.conic, width, height, config, needs_graph(*inputs),
     )

@@ -298,21 +298,16 @@ def composite_bwd(fields, tile_starts, raw, dout, perm, width: int, height: int,
     out_dtype = torch.bfloat16 if bf16 else torch.float32
     grads = torch.zeros((NUM_FIELDS, k), dtype=out_dtype, device=fields.device)
     pairs_done = torch.zeros(num_tiles, dtype=torch.int32, device=fields.device)
-    status = lib.composite_bwd_launch(
+    cuda_build.launch(
+        "composite_bwd", "composite_bwd_launch", fields.device,
         fields.data_ptr(), k, tile_starts.data_ptr(), num_tiles, tiles_x,
         config.tile_w, config.tile_h, config.chunk_size, config.transmittance_eps,
         config.alpha_discard, config.alpha_max, int(config.quad_clip),
         raw.data_ptr(), dout.data_ptr(), perm.data_ptr(), int(bf16),
         grads.data_ptr(), pairs_done.data_ptr(), seg_order.data_ptr(), seg_tile.data_ptr(),
         seg_starts.data_ptr(), state.shape[0], steps, state.data_ptr(), fwd_done.data_ptr(),
-        torch.cuda.current_stream(fields.device).cuda_stream,
     )
-    cuda_build.check(lib, "composite_bwd", status, "composite_bwd")
-    composite_bwd.launches += 1
     return grads, pairs_done
-
-
-composite_bwd.launches = 0
 
 
 def run_reduce_plain(grads, bounds):
@@ -365,14 +360,8 @@ def run_reduce(grads, bounds):
     out = torch.empty((NUM_FIELDS, n), dtype=torch.float32, device=grads.device)
     if n == 0:
         return out
-    lib = cuda_build.library("run_reduce")
-    status = lib.run_reduce_launch(
-        grads.data_ptr(), grads.shape[1], int(grads.dtype == torch.bfloat16), bounds.data_ptr(), n,
-        out.data_ptr(), torch.cuda.current_stream(grads.device).cuda_stream,
+    cuda_build.launch(
+        "run_reduce", "run_reduce_launch", grads.device,
+        grads.data_ptr(), grads.shape[1], int(grads.dtype == torch.bfloat16), bounds.data_ptr(), n, out.data_ptr(),
     )
-    cuda_build.check(lib, "run_reduce", status, "run_reduce")
-    run_reduce.launches += 1
     return out
-
-
-run_reduce.launches = 0
