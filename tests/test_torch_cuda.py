@@ -6,8 +6,10 @@ modes on the card equal to the CPU's, the tile path (``backend="torch"``)
 on the card against the CPU, strips on a world of one NCCL rank, and the
 ``train_splats`` program's first steps on the card against the CPU, the
 projection's two kernels (``csrc/project.cu``) against its plain version
-bit for bit, alone and in a frame, and the asset decode (``csrc/decode.cu``)
-against its plain version bit for bit, alone and in a frame.  K2's
+bit for bit, alone and in a frame, the asset decode (``csrc/decode.cu``)
+against its plain version bit for bit, alone and in a frame, and the pair
+sort (``csrc/pair_sort.cu``) against its plain version bit for bit, up to
+a 6.1M-splat cloud's budget of 15M slots.  K2's
 operands come from a per-splat kernel, and K2 runs in windows of slots; K1
 runs as clusters of CTAs and saves K3's checkpoints; K3 runs one block per
 segment from them.
@@ -67,6 +69,7 @@ EDGE_SCENES = {
     "overflow-in-long-run": dict(tile_w=8, tile_h=4, chunk_size=32, pair_multiplier=0.5),
 }
 K2_WINDOW = 512  # csrc/pair_expand.cu's kWindow
+SORT_ENTRIES = ("pair_sort_upsweep_launch", "pair_sort_pass_launch", "pair_sort_starts_launch")
 # 64x2 = 128 px: a cluster of 4 CTAs (8 would leave each less than a warp);
 # chunk 1024: a 48 KB stage beside the static exit flags.
 K1_CONFIGS = dict(CONFIGS, **{"tiles-64x2": dict(tile_h=2, chunk_size=32), "chunk-1024": dict(chunk_size=1024)})
@@ -217,8 +220,121 @@ def sorted_inputs(device, cfg):
     tiles_x, tiles_y = tile_grid(WIDTH, HEIGHT, cfg)
     num_tiles = tiles_x * tiles_y
     comp, fields = pe.expand_pairs_plain(table, bounds, k, WIDTH, HEIGHT, cfg)
-    _, fields_s, starts, perm = pe.sort_pairs(comp, fields, num_tiles, depth_key_bits(num_tiles))
+    fields_s, starts, perm, _, _ = pe.sort_pairs(comp, fields, num_tiles, depth_key_bits(num_tiles))
     return fields_s, starts, perm, bounds
+
+
+# The sphere, the scenes of EDGE_SCENES that K2 fills or overflows, two clouds
+# of dead splats only, and the top strip of the frame under the frame's
+# depth bits and under 16 (three passes instead of four).
+SORT_SCENES = [
+    "sphere", "sphere-headline", "overflow", "overflow-in-long-run", "one-splat", "fewer-than-a-window",
+    "empty", "behind-camera", "strip", "strip-16-bit-depth",
+]
+STRIP_ROWS = HEIGHT // 2
+
+
+def sort_case(device, name):
+    """K2's plain outputs for one of SORT_SCENES, the pair sort's inputs in
+    its CPU tests (tests/test_torch_pair_sort.py) and here: ``(comp,
+    fields, num_tiles, db)``."""
+    height = HEIGHT
+    if name.startswith("sphere"):
+        proj, cfg = sphere_projection(device), RasterizeConfig(**(HEADLINE if name == "sphere-headline" else {}))
+    elif name.startswith("strip"):
+        frame_tiles = tile_grid(WIDTH, HEIGHT, RasterizeConfig())
+        bits = 16 if name == "strip-16-bit-depth" else depth_key_bits(frame_tiles[0] * frame_tiles[1])
+        proj, cfg, height = sphere_projection(device), RasterizeConfig(depth_bits=bits), STRIP_ROWS
+    else:
+        proj, cfg = edge_scene(device, name)
+    tiles_x, tiles_y = tile_grid(WIDTH, height, cfg)
+    num_tiles = tiles_x * tiles_y
+    table, bounds, _ = pe.prepare_table_plain(proj, WIDTH, height, cfg)
+    comp, fields = pe.expand_pairs_plain(table, bounds, pair_budget(table.shape[1], cfg), WIDTH, height, cfg)
+    return comp, fields, num_tiles, depth_key_bits(num_tiles, cfg)
+
+
+def assert_sort_matches_plain(comp, fields, num_tiles, db):
+    """The pair sort against its plain version: every output bit for bit,
+    one upsweep, one pass an 8-bit digit of the key and one tile-start
+    search launched."""
+    before = cuda_build.launched.copy()
+    got = pe.sort_pairs(comp, fields, num_tiles, db)
+    want = pe.sort_pairs_plain(comp, fields, num_tiles, db)
+    torch.cuda.synchronize()
+    took = cuda_build.launched - before
+    assert {e: took[e] for e in SORT_ENTRIES} == {
+        "pair_sort_upsweep_launch": 1, "pair_sort_pass_launch": pe.sort_passes(num_tiles, db),
+        "pair_sort_starts_launch": 1}
+    for name, a, b in zip(("fields_s", "tile_starts", "perm", "pair_tile", "pair_rank"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b), name
+    return got
+
+
+def equal_key_case(device, name, k):
+    """``k`` slots of three splats each: every key equal (stability decides
+    the whole order), or every key in the sentinel tile with seeded depths."""
+    num_tiles = 475
+    db = depth_key_bits(num_tiles)
+    slot = torch.arange(k, device=device)
+    if name == "equal-keys":
+        key = torch.full((k,), (123 << db) | 4567, device=device, dtype=torch.int64)
+    else:
+        gen = torch.Generator(device=device).manual_seed(11)
+        depth = torch.randint(0, 1 << db, (k // 3 + 1,), generator=gen, device=device)
+        key = (num_tiles << db) | depth[slot // 3]
+    comp = (key << pe.SPLAT_BITS) | (slot // 3)
+    fields = torch.arange(pe.NUM_FIELDS * k, device=device, dtype=torch.float32).reshape(pe.NUM_FIELDS, k)
+    return comp, fields, num_tiles, db
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SORT_SCENES + ["odd-k", "equal-keys", "sentinel-keys", "bicycle-budget"])
+def test_pair_sort_kernel_matches_plain(device, name):
+    tile_keys = cuda_build.library("pair_sort").pair_sort_tile_keys()
+    if name in SORT_SCENES:
+        case = sort_case(device, name)
+    elif name == "odd-k":  # the sphere at a budget that is no multiple of a pass's tile
+        cfg = RasterizeConfig()
+        table, bounds, _ = pipeline_inputs(device, cfg)
+        num_tiles = 12
+        comp, fields = pe.expand_pairs(table, bounds, 3 * tile_keys + 1001, WIDTH, HEIGHT, cfg)
+        case = comp, fields, num_tiles, depth_key_bits(num_tiles)
+    elif name in ("equal-keys", "sentinel-keys"):
+        case = equal_key_case(device, name, 40 * tile_keys + 77)
+    else:
+        case = bicycle_budget(device)
+    comp = case[0]
+    if name in ("odd-k", "equal-keys", "sentinel-keys"):
+        assert comp.shape[0] % tile_keys  # a pass's last tile is ragged
+    _, _, perm, _, _ = assert_sort_matches_plain(*case)
+    if name == "equal-keys":
+        assert torch.equal(perm, torch.arange(comp.shape[0], device=device))
+    if name == "bicycle-budget":
+        assert comp.shape[0] >= 15_000_000 and pe.sort_passes(case[2], case[3]) == 4
+
+
+def bicycle_budget(device):
+    """K2's keys and fields for the benchmark's bicycle-class cloud (6.1M
+    splats) seen from its orbit at 1200x797, at a budget of 2.5 slots a
+    splat."""
+    from splatbench import scenes
+
+    from unitygaussiansplatting_torch.models.gaussians import RawGaussians
+
+    width, height = 1200, 797
+    g = RawGaussians(**scenes.outdoor_scene(6_100_000, 2_000_000_033, device)).activate()
+    cam = Camera.look_at([5.0, 0.4, 0.0], [0.0, -0.2, 0.0], [0, 1, 0], 47.0, width, height).to(device)
+    cfg = RasterizeConfig(pair_multiplier=2.5)
+    with torch.no_grad():
+        proj = project_splats(g, cam)
+        del g
+        table, bounds, _ = pe.prepare_table(proj, width, height, cfg)
+        comp, fields = pe.expand_pairs(table, bounds, pair_budget(table.shape[1], cfg), width, height, cfg)
+    tiles_x, tiles_y = tile_grid(width, height, cfg)
+    return comp, fields, tiles_x * tiles_y, depth_key_bits(tiles_x * tiles_y)
 
 
 def assert_k1_matches_plain(fields, starts, width, height, cfg, segment_steps=rb.SEGMENT_STEPS):

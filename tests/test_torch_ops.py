@@ -376,6 +376,7 @@ KERNEL_QUERIES = {
     "composite_fwd.cu": ("composite_fwd_cluster_size", "composite_fwd_pixels_per_thread",
                          "composite_fwd_max_active_clusters"),
     "composite_bwd.cu": ("composite_bwd_pixels_per_thread",),
+    "pair_sort.cu": ("pair_sort_tile_keys",),
 }
 
 

@@ -29,10 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
-SOURCES = (
-    "pair_table.cu", "pair_expand.cu", "expand_probe.cu", "composite_fwd.cu", "composite_bwd.cu",
-    "run_reduce.cu", "project.cu", "decode.cu",
-)
+SOURCES = tuple(sorted(path.name for path in CSRC.glob("*.cu")))
 
 # --fmad=false: no multiply-add contraction, so every kernel rounds once per
 # operation like its plain PyTorch version.  No --use_fast_math: it would

@@ -10,11 +10,15 @@ The port of ``bin_and_prepare`` (unitygaussiansplatting_tpu/ops/pair_expand.py):
 2. K2, :func:`expand_pairs`: per slot, the fused sort key
    ``((tile << db) | depth_key) << 31 | splat`` as one int64 and the 10
    composite fields, decoded from the configured lattices.
-3. One ``torch.sort`` of the int64 keys (this replaces the TPU package's
-   two-key ``jax.lax.sort``), then a gather of the fields.  The key is
-   shifted by 31, not 32: keys >= 2^31 occur (db = 23 at 475 tiles), and a
-   32-bit shift would make them negative.
-4. ``tile_starts`` from one ``searchsorted`` over the sorted keys.
+3. The pair sort, :func:`sort_pairs` (this replaces the TPU package's
+   two-key ``jax.lax.sort``): on CUDA a stable radix sort written by hand
+   (``csrc/pair_sort.cu``) of the key's top bits, ``comp >> 31``, with each
+   pair's slot as its value, then a gather of the fields; its last pass
+   writes each sorted pair's tile and splat id, and a search over the
+   sorted tiles gives ``tile_starts``.  The key is shifted by 31, not 32:
+   keys >= 2^31 occur (db = 23 at 475 tiles), and a 32-bit shift would make
+   them negative.  On the CPU, :func:`sort_pairs_plain`: one ``torch.sort``
+   of the int64 keys, the gather, ``searchsorted``.
 
 The sort's permutation (``TileBinning.perm``: the slot of each sorted pair)
 and the slot runs (``TileBinning.bounds``) are kept for the backward, which
@@ -37,6 +41,7 @@ from .tile_common import (
 NUM_FIELDS = 10  # cx, cy, a1x, a1y, a2x, a2y, r, g, b, opacity
 TABLE_ROWS = 14  # the 10 fields, then x0, y0, nx, depth key
 SPLAT_BITS = 31  # splat id bits below the fused key in the int64 sort key
+SORT_DIGIT_BITS = 8  # bits a pass of the pair sort orders
 
 QUAD_CLIP, PACK_CENTER, PACK_AX32, PACK_AXES_F16, PACK_COLOR_F16, PACK_RGBA8 = 1, 2, 4, 8, 16, 32
 
@@ -350,20 +355,104 @@ def expand_probe(k: int, device, keys_only: bool = False):
     return comp, fields
 
 
-def sort_pairs(comp, fields, num_tiles: int, db: int):
-    """Sort slots by the int64 key and gather their fields.
+def sort_key_bits(num_tiles: int, db: int) -> int:
+    """Bits of the pair sort's key ``comp >> SPLAT_BITS``: the tile (the
+    sentinel ``num_tiles`` the largest) above ``db`` depth bits."""
+    return num_tiles.bit_length() + db
 
-    Returns ``(sorted comp, sorted fields (10, K), tile_starts (T+1,) i32,
-    perm (K,) i64)``; ``perm[j]`` is the slot of sorted pair ``j``.
-    Ties in the key are never-used tail slots or repeated culls of one
-    splat, whose fields are equal, so the result does not depend on the
-    sort's tie order.
-    """
+
+def sort_passes(num_tiles: int, db: int) -> int:
+    """Radix passes of the pair sort on CUDA: one an 8-bit digit of the key."""
+    return -(-sort_key_bits(num_tiles, db) // SORT_DIGIT_BITS)
+
+
+def sort_pairs_plain(comp, fields, num_tiles: int, db: int):
+    """Plain PyTorch version of :func:`sort_pairs`: one stable ``torch.sort``
+    of the int64 keys, the gather of the fields by its permutation, and
+    ``searchsorted`` over the sorted keys for the tile starts."""
     comp_s, perm = torch.sort(comp, stable=True)
     fields_s = fields.index_select(1, perm)
     tile_keys = (torch.arange(num_tiles + 1, device=comp.device, dtype=torch.int64) << db) << SPLAT_BITS
     tile_starts = torch.searchsorted(comp_s, tile_keys).to(torch.int32)
-    return comp_s, fields_s, tile_starts, perm
+    pair_tile = (comp_s >> (SPLAT_BITS + db)).to(torch.int32)
+    pair_rank = (comp_s & ((1 << SPLAT_BITS) - 1)).to(torch.int32)
+    return fields_s, tile_starts, perm, pair_tile, pair_rank
+
+
+def sort_keys_cuda(comp, num_tiles: int, db: int):
+    """The pair sort's kernels (``csrc/pair_sort.cu``) on K2's int64 keys
+    ``comp`` (K,), a CUDA tensor: ``(tile_starts (T+1,) i32, perm (K,) i64,
+    pair_tile (K,) i32, pair_rank (K,) i32)``, as :func:`sort_pairs_plain`
+    gives them.
+
+    The splat id below bit 31 never falls as the slot rises (slots are
+    splat-major), so a stable sort of ``comp >> 31``, the
+    :func:`sort_key_bits` bits of (tile | depth), with the slot as its value
+    gives ``torch.sort(comp, stable=True)``'s permutation: one upsweep (every
+    pass's digit histogram), :func:`sort_passes` passes of 8-bit digits (the
+    last writes ``perm``, each pair's tile and its splat id), then a search
+    for each tile's first pair.  Bound on the H100 by bytes.
+    """
+    k = comp.shape[0]
+    dev = comp.device
+    if k >= 2**31 or sort_key_bits(num_tiles, db) > 32:
+        raise ValueError(f"the pair sort takes K < 2^31 and keys of <= 32 bits, got K={k}, "
+                         f"{sort_key_bits(num_tiles, db)} bits ({num_tiles} tiles, db={db})")
+    if dev.type != "cuda" or not comp.is_contiguous():
+        raise ValueError(f"comp must be a contiguous CUDA tensor, got one on {dev}")
+    passes, radix = sort_passes(num_tiles, db), 1 << SORT_DIGIT_BITS
+    tiles = -(-k // cuda_build.library("pair_sort").pair_sort_tile_keys())
+    # Scratch: the keys' and values' double buffers, each slot's splat id,
+    # every pass's histogram and tile counter, the look-back words.
+    keys = torch.empty((2, k), dtype=torch.int32, device=dev)
+    vals = torch.empty((2, k), dtype=torch.int32, device=dev)
+    splats = torch.empty(k, dtype=torch.int32, device=dev)
+    state = torch.empty(passes * (radix + 1), dtype=torch.int32, device=dev)
+    lookback = torch.empty((2, tiles, radix), dtype=torch.int64, device=dev)
+    perm = torch.empty(k, dtype=torch.int64, device=dev)
+    pair_tile = torch.empty(k, dtype=torch.int32, device=dev)
+    pair_rank = torch.empty(k, dtype=torch.int32, device=dev)
+    tile_starts = torch.empty(num_tiles + 1, dtype=torch.int32, device=dev)
+    cuda_build.launch("pair_sort", "pair_sort_upsweep_launch", dev,
+                      comp.data_ptr(), k, passes, state.data_ptr(), lookback.data_ptr(), tiles)
+    for p in range(passes):
+        cuda_build.launch(
+            "pair_sort", "pair_sort_pass_launch", dev,
+            comp.data_ptr(), keys.data_ptr(), vals.data_ptr(), splats.data_ptr(), k, p, passes, db,
+            state.data_ptr(), lookback.data_ptr(), tiles, perm.data_ptr(), pair_tile.data_ptr(), pair_rank.data_ptr(),
+        )
+    cuda_build.launch("pair_sort", "pair_sort_starts_launch", dev,
+                      pair_tile.data_ptr(), k, num_tiles, tile_starts.data_ptr())
+    return tile_starts, perm, pair_tile, pair_rank
+
+
+def sort_pairs(comp, fields, num_tiles: int, db: int):
+    """Sort slots by K2's int64 key and gather their fields.
+
+    Returns ``(sorted fields (10, K), tile_starts (T+1,) i32, perm (K,) i64,
+    pair_tile (K,) i32, pair_rank (K,) i32)``: ``perm[j]`` is the slot of
+    sorted pair ``j``, ``pair_tile`` its tile (``num_tiles``: the sentinel)
+    and ``pair_rank`` its splat id (N for unused slots).  Ties in the key
+    are never-used tail slots or repeated culls of one splat, whose fields
+    are equal; the sort is stable, so ``perm`` is the one order.
+
+    Replaces no TPU kernel (the TPU package's sort is XLA's
+    ``jax.lax.sort``).  CUDA tensors launch :func:`sort_keys_cuda`'s
+    kernels, then gather the fields by ``perm``; CPU tensors take
+    :func:`sort_pairs_plain`.
+    """
+    k = comp.shape[0]
+    if comp.dim() != 1 or comp.dtype != torch.int64:
+        raise ValueError(f"comp must be (K,) int64, got {tuple(comp.shape)} {comp.dtype}")
+    if fields.shape != (NUM_FIELDS, k) or fields.device != comp.device:
+        raise ValueError(f"fields must be ({NUM_FIELDS}, {k}) on {comp.device}, got {tuple(fields.shape)} on "
+                         f"{fields.device}")
+    if comp.device.type == "cpu":
+        return sort_pairs_plain(comp, fields, num_tiles, db)
+    if comp.device.type != "cuda":
+        raise ValueError(f"sort_pairs runs on CPU or CUDA tensors, got {comp.device}")
+    tile_starts, perm, pair_tile, pair_rank = sort_keys_cuda(comp, num_tiles, db)
+    return fields.index_select(1, perm), tile_starts, perm, pair_tile, pair_rank
 
 
 def bin_and_prepare(proj, width: int, height: int, config: RasterizeConfig = RasterizeConfig()):
@@ -382,10 +471,10 @@ def bin_and_prepare(proj, width: int, height: int, config: RasterizeConfig = Ras
     table, bounds, num_real = prepare_table(proj, width, height, config)
     comp, fields = expand_pairs(table, bounds, k, width, height, config)
     with record_function("splat_sort"):
-        comp_s, fields_s, tile_starts, perm = sort_pairs(comp, fields, num_tiles, db)
+        fields_s, tile_starts, perm, pair_tile, pair_rank = sort_pairs(comp, fields, num_tiles, db)
     binning = TileBinning(
-        pair_rank=(comp_s & ((1 << SPLAT_BITS) - 1)).to(torch.int32),
-        pair_tile=(comp_s >> (SPLAT_BITS + db)).to(torch.int32),
+        pair_rank=pair_rank,
+        pair_tile=pair_tile,
         tile_starts=tile_starts,
         num_pairs=bounds[-1],
         perm=perm,

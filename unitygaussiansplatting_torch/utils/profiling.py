@@ -8,7 +8,7 @@ breakdown (readme.md:84).  Two mechanisms:
 - ``torch.profiler.record_function`` ranges inside ``render_with_stats``
   (``splat_decode``; ``splat_project`` with the SH shading's ``splat_sh``
   inside it; ``splat_rasterize_cuda`` with ``splat_bin`` inside it and the
-  sort, gather and ``searchsorted``'s ``splat_sort`` inside that), and
+  pair sort's ``splat_sort`` inside that), and
   ``splat_frame`` around a whole ``ViewerSession.frame``, label the frame's
   kernels in a ``torch.profiler`` trace; :func:`trace_frame` captures one.
 - :func:`render_phases` times each stage of the forward as its own call.
@@ -34,8 +34,11 @@ from ..utils.device import resolve_device
 
 # The H100 SXM's published HBM rate (NVIDIA data sheet, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
-# torch.sort of int64 keys on CUDA: a radix sort over all 64 key bits, 8
-# bits a pass, each pass reading and writing the keys and the int64 indices.
+# The stage model counts the pair sort as a library radix sort of the int64
+# keys (torch.sort): all 64 key bits, 8 bits a pass, each pass reading and
+# writing the keys and the int64 indices.  splatbench/counts.py's yardstick
+# holds the same figures (its tests hold the two equal); the port's own
+# sort (csrc/pair_sort.cu) moves about a third of those bytes.
 SORT_KEY_BITS, SORT_BITS_PER_PASS = 64, 8
 
 
@@ -122,9 +125,9 @@ def phase_roofline(
 
     - the card's 3.35 TB/s, not a TPU's rate;
     - ``bin_prepare`` is the per-splat pass and K2 (:func:`binning_bytes`),
-      the scan of the run bounds, ``torch.sort``'s radix passes over the
-      64-bit keys and their int64 indices (not ``ceil(log2 K)`` merge
-      passes), and the gather of the fields;
+      the scan of the run bounds, the sort as a library's radix passes
+      over the 64-bit keys and their int64 indices (``SORT_KEY_BITS``; the
+      port's own sort moves fewer bytes), and the gather of the fields;
     - no ``schedule`` stage: K1 reads the tile starts itself;
     - ``kernel_untile`` is K1 (the fields in, the tile buffer out) and the
       untile; K1 is bound by instruction issue, not bytes, so its bytes
