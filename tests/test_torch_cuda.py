@@ -9,7 +9,10 @@ projection's two kernels (``csrc/project.cu``) against its plain version
 bit for bit, alone and in a frame, the asset decode (``csrc/decode.cu``)
 against its plain version bit for bit, alone and in a frame, and the pair
 sort (``csrc/pair_sort.cu``) against its plain version bit for bit, up to
-a 6.1M-splat cloud's budget of 15M slots.  K2's
+a 6.1M-splat cloud's budget of 15M slots, and a frame's route through the
+per-splat records (K1 reading each pair's fields through its splat id)
+against the route through the sorted per-slot fields, bit for bit, on the
+sort's cases.  K2's
 operands come from a per-splat kernel, and K2 runs in windows of slots; K1
 runs as clusters of CTAs and saves K3's checkpoints; K3 runs one block per
 segment from them.
@@ -21,8 +24,10 @@ neither JAX nor the JAX package, so it also runs where JAX is not installed
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import collections
 import dataclasses
 import json
+import re
 import warnings
 
 import pytest
@@ -148,8 +153,11 @@ def edge_scene(device, scene):
 
 def assert_table_matches_plain(proj, cfg):
     """The per-splat kernel against its plain version: the table bit for
-    bit, the run bounds and the real pair count exact; returns the kernel's
-    ``(table, bounds, num_real)``."""
+    bit, the run bounds and the real pair count exact; where the config
+    allows records, the kernel again with them: the same table, bounds and
+    count, and the records as the plain version's (bit for bit; within
+    FIELD_TOL under pack_axes_u32, whose decode takes cos, sin and exp2).
+    Returns the kernel's ``(table, bounds, num_real)``."""
     before = cuda_build.launched.copy()
     table, bounds, real = pe.prepare_table(proj, WIDTH, HEIGHT, cfg)
     table_p, bounds_p, real_p = pe.prepare_table_plain(proj, WIDTH, HEIGHT, cfg)
@@ -160,6 +168,20 @@ def assert_table_matches_plain(proj, cfg):
     assert bounds.dtype == torch.int32 and torch.equal(bounds, bounds_p)
     assert real.dtype == torch.int32 and int(real) == int(real_p)
     assert bool(torch.isfinite(table).all())
+    if pe.per_splat_fields(cfg):
+        *again, record = pe.prepare_table(proj, WIDTH, HEIGHT, cfg, records=True)
+        record_p = pe.splat_records_plain(table_p, cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(again[0].view(torch.int32), table.view(torch.int32))
+        assert torch.equal(again[1], bounds) and int(again[2]) == int(real)
+        assert record.shape == (table.shape[1], pe.RECORD_FLOATS) and record.data_ptr() % 16 == 0
+        if cfg.pack_axes_u32:
+            torch.testing.assert_close(record, record_p, **FIELD_TOL)
+        else:
+            assert differing(record, record_p) == 0
+    else:
+        with pytest.raises(ValueError, match="center packing"):
+            pe.prepare_table(proj, WIDTH, HEIGHT, cfg, records=True)
     return table, bounds, real
 
 
@@ -202,10 +224,12 @@ def test_k2_kernel_matches_plain(device, name):
     before = cuda_build.launched.copy()
     comp, fields = pe.expand_pairs(table, bounds, k, WIDTH, HEIGHT, cfg)
     comp_p, fields_p = pe.expand_pairs_plain(table, bounds, k, WIDTH, HEIGHT, cfg)
+    keys, none = pe.expand_pairs(table, bounds, k, WIDTH, HEIGHT, cfg, keys_only=True)
     torch.cuda.synchronize()
-    assert (cuda_build.launched - before)["expand_pairs_launch"] == 1
+    assert (cuda_build.launched - before)["expand_pairs_launch"] == 2
     assert torch.equal(comp, comp_p)
     torch.testing.assert_close(fields, fields_p, **FIELD_TOL)
+    assert torch.equal(keys, comp) and none is None  # the keys alone: the same keys
     demand = int(bounds[-1])
     if name.startswith("overflow"):
         assert demand > k
@@ -320,6 +344,40 @@ def bicycle_budget(device):
     """K2's keys and fields for the benchmark's bicycle-class cloud (6.1M
     splats) seen from its orbit at 1200x797, at a budget of 2.5 slots a
     splat."""
+    proj, cfg, width, height = bicycle_projection(device)
+    with torch.no_grad():
+        table, bounds, _ = pe.prepare_table(proj, width, height, cfg)
+        comp, fields = pe.expand_pairs(table, bounds, pair_budget(table.shape[1], cfg), width, height, cfg)
+    tiles_x, tiles_y = tile_grid(width, height, cfg)
+    return comp, fields, tiles_x * tiles_y, depth_key_bits(tiles_x * tiles_y)
+
+
+def route_case(device, name):
+    """``(proj, cfg, width, height, k)`` of a frame for one of the pair sort's
+    cases (SORT_SCENES, odd-k, bicycle-budget) and of the per-splat pass's
+    lattices (TABLE_CONFIGS), each config without center packing, which
+    keeps the per-slot fields."""
+    width, height, k = WIDTH, HEIGHT, None
+    if name in TABLE_CONFIGS:
+        proj, cfg = sphere_projection(device), RasterizeConfig(**TABLE_CONFIGS[name])
+    elif name.startswith("strip"):
+        frame_tiles = tile_grid(WIDTH, HEIGHT, RasterizeConfig())
+        bits = 16 if name == "strip-16-bit-depth" else depth_key_bits(frame_tiles[0] * frame_tiles[1])
+        proj, cfg, height = sphere_projection(device), RasterizeConfig(depth_bits=bits), STRIP_ROWS
+    elif name == "odd-k":  # a budget that is no multiple of a sort pass's tile
+        proj, cfg = sphere_projection(device), RasterizeConfig()
+        k = 3 * cuda_build.library("pair_sort").pair_sort_tile_keys() + 1001
+    elif name == "bicycle-budget":
+        proj, cfg, width, height = bicycle_projection(device)
+    else:
+        proj, cfg = edge_scene(device, name)
+    return proj, dataclasses.replace(cfg, pack_center_u32=False), width, height, k
+
+
+def bicycle_projection(device):
+    """The benchmark's bicycle-class cloud (6.1M splats) seen from its orbit
+    at 1200x797, and a config of 2.5 budget slots a splat: ``(proj, cfg,
+    width, height)``."""
     from splatbench import scenes
 
     from unitygaussiansplatting_torch.models.gaussians import RawGaussians
@@ -327,14 +385,59 @@ def bicycle_budget(device):
     width, height = 1200, 797
     g = RawGaussians(**scenes.outdoor_scene(6_100_000, 2_000_000_033, device)).activate()
     cam = Camera.look_at([5.0, 0.4, 0.0], [0.0, -0.2, 0.0], [0, 1, 0], 47.0, width, height).to(device)
-    cfg = RasterizeConfig(pair_multiplier=2.5)
     with torch.no_grad():
-        proj = project_splats(g, cam)
-        del g
-        table, bounds, _ = pe.prepare_table(proj, width, height, cfg)
-        comp, fields = pe.expand_pairs(table, bounds, pair_budget(table.shape[1], cfg), width, height, cfg)
+        return project_splats(g, cam), RasterizeConfig(pair_multiplier=2.5), width, height
+
+
+ROUTE_CASES = [name for name in TABLE_CONFIGS if name != "center-f16"] + [
+    name for name in SORT_SCENES if name not in ("sphere", "sphere-headline")] + ["odd-k", "bicycle-budget"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ROUTE_CASES)
+def test_record_route_matches_slot_route(device, name):
+    # A frame's two routes on the card: the per-slot fields K2 writes and the
+    # sort gathers, against the per-splat records K1 reads through each
+    # pair's splat id.  The same keys, order and tile starts, and K1's image,
+    # exits and checkpoints bit for bit; the record route launches the same
+    # kernels (K2 writing keys only, the sort no permutation) and gathers
+    # nothing.
+    proj, cfg, width, height, k = route_case(device, name)
     tiles_x, tiles_y = tile_grid(width, height, cfg)
-    return comp, fields, tiles_x * tiles_y, depth_key_bits(tiles_x * tiles_y)
+    num_tiles = tiles_x * tiles_y
+    db = depth_key_bits(num_tiles, cfg)
+    table, bounds, _ = pe.prepare_table(proj, width, height, cfg)
+    k = k or pair_budget(table.shape[1], cfg)
+    comp, fields = pe.expand_pairs(table, bounds, k, width, height, cfg)
+    fields_s, starts, _, _, ranks = pe.sort_pairs(comp, fields, num_tiles, db)
+    del fields
+    old = rc.composite_tiles(fields_s, starts, width, height, cfg, checkpoints=True)
+    del fields_s
+    before = cuda_build.launched.copy()
+    table_r, bounds_r, _, record = pe.prepare_table(proj, width, height, cfg, records=True)
+    comp_r, none = pe.expand_pairs(table_r, bounds_r, k, width, height, cfg, keys_only=True)
+    sorted_none, starts_r, perm_none, _, ranks_r = pe.sort_pairs(comp_r, None, num_tiles, db)
+    new = rc.composite_tiles(record, starts_r, width, height, cfg, checkpoints=True, pair_rank=ranks_r)
+    torch.cuda.synchronize()
+    took = cuda_build.launched - before
+    assert {e: took[e] for e in ("pair_table_launch", "expand_pairs_launch", "composite_fwd_launch")} == dict.fromkeys(
+        ("pair_table_launch", "expand_pairs_launch", "composite_fwd_launch"), 1)
+    assert none is None and sorted_none is None and perm_none is None
+    assert torch.equal(table_r.view(torch.int32), table.view(torch.int32)) and torch.equal(bounds_r, bounds)
+    assert torch.equal(comp_r, comp) and torch.equal(starts_r, starts) and torch.equal(ranks_r, ranks)
+    (raw, done, ck), (raw_r, done_r, ck_r) = old, new
+    assert torch.equal(raw_r.view(torch.int32), raw.view(torch.int32)) and torch.equal(done_r, done)
+    assert torch.equal(ck_r.seg_starts, ck.seg_starts)
+    _, pairs = rb.segment_pairs(starts, ck, cfg.chunk_size)
+    assert torch.equal(ck_r.state[pairs > 0].view(torch.int32), ck.state[pairs > 0].view(torch.int32))
+    if name == "bicycle-budget":
+        assert k >= 15_000_000 and int(starts[-1]) > 0
+    elif name in ("empty", "behind-camera"):  # every slot in the sentinel tile
+        assert int(starts[-1]) == 0 and not bool(raw.any())
+    elif num_tiles <= 64:  # and K1 against its plain version reading the same records
+        raw_p, done_p, _ = rc.composite_tiles_plain(record, starts_r, width, height, cfg, pair_rank=ranks_r)
+        torch.testing.assert_close(raw_r, raw_p, rtol=0, atol=K1_ATOL)
+        assert torch.equal(done_r, done_p)
 
 
 def assert_k1_matches_plain(fields, starts, width, height, cfg, segment_steps=rb.SEGMENT_STEPS):
@@ -825,6 +928,46 @@ def test_projection_launches_and_host_syncs_of_a_frame(device, tmp_path):
     assert sum("project_geom" in k for k in kernels) == 1 and sum("project_sh" in k for k in sh) == 1
     assert len(kernels) <= 6 and set(sh) <= set(kernels)
     assert len(counts["plain"][0]) > 100
+
+
+def _untemplated(name):
+    """A device operation's name without its template arguments (K2's two
+    specializations are one kernel of the port)."""
+    while (stripped := re.sub(r"<[^<>]*>", "", name)) != name:
+        name = stripped
+    return name
+
+
+@pytest.mark.cuda
+def test_frame_reads_the_records_with_one_launch_fewer(device, tmp_path):
+    # A frame without autograd reads each pair's fields from its splat's
+    # record: against the per-slot route (per_splat_fields forced False) the
+    # same image bit for bit, the same kernels of the port once each, and
+    # one device operation fewer in the traced frame: the gather of the
+    # fields by the sort's permutation.
+    g, _, _, _ = projection_scene(device, "sphere")
+    cam = Camera.look_at([0, 0.5, -3.0], [0, 0, 0], [0, 1, 0], 45.0, WIDTH, HEIGHT)
+    images, ports, ops = {}, {}, {}
+    for route in ("records", "slots"):
+        with pytest.MonkeyPatch.context() as mp:
+            if route == "slots":
+                mp.setattr(rc, "per_splat_fields", lambda config: False)
+            render(g, cam, device=device)
+            torch.cuda.synchronize()
+            before = cuda_build.launched.copy()
+            images[route] = render(g, cam, device=device)
+            torch.cuda.synchronize()
+            ports[route] = cuda_build.launched - before
+            trace = tmp_path / f"{route}.json"
+            _frame_trace(lambda: render(g, cam, device=device), trace)
+            ops[route] = collections.Counter(map(_untemplated, _launched_in(trace, "splat_rasterize_cuda")))
+    assert torch.equal(images["records"].view(torch.int32), images["slots"].view(torch.int32))
+    assert ports["records"] == ports["slots"] and ports["records"]["composite_fwd_launch"] == 1
+    assert sum(ports["records"].values()) == 2 + 3 + pe.sort_passes(12, depth_key_bits(12)) + 2
+    extra = ops["slots"] - ops["records"]
+    print(dict(ops["records"]), dict(extra))
+    assert not ops["records"] - ops["slots"] and sum(extra.values()) == 1
+    assert any("gather" in name for name in extra) and not any("gather" in name for name in ops["records"])
 
 
 @pytest.mark.cuda

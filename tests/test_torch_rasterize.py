@@ -15,9 +15,13 @@ torch = pytest.importorskip("torch")
 
 import _torch_parity as tp  # noqa: E402
 import unitygaussiansplatting_tpu.ops.rasterize_pallas as rpal  # noqa: E402
+from unitygaussiansplatting_torch.models.camera import Camera as TCamera  # noqa: E402
 from unitygaussiansplatting_torch.models.renderer import render_with_stats  # noqa: E402
+from unitygaussiansplatting_torch.ops import pair_expand as tpe  # noqa: E402
 from unitygaussiansplatting_torch.ops import rasterize_cuda as trc  # noqa: E402
 from unitygaussiansplatting_torch.ops.pair_expand import bin_and_prepare  # noqa: E402
+from unitygaussiansplatting_torch.ops.projection import project_splats as tproject  # noqa: E402
+from unitygaussiansplatting_torch.utils.synthetic import sphere_scene as tsphere_scene  # noqa: E402
 from unitygaussiansplatting_tpu.models.renderer import render_with_stats as jax_render_with_stats  # noqa: E402
 from unitygaussiansplatting_tpu.ops.projection import project_splats as jax_project  # noqa: E402
 
@@ -132,3 +136,88 @@ def test_composite_tiles_rejects_bad_inputs(projections):
         trc.composite_tiles(fields, binning.tile_starts.long(), tp.WIDTH, tp.HEIGHT, cfg)
     with pytest.raises(ValueError):  # neither CPU (plain version) nor CUDA (kernel)
         trc.composite_tiles(fields.to("meta"), binning.tile_starts.to("meta"), tp.WIDTH, tp.HEIGHT, cfg)
+
+
+# The plain twin of a frame's record route (per-splat records read through
+# the sort's splat ids) against its slot route (per-slot fields gathered by
+# the permutation): the port's own sphere scene under every pack flag but
+# center packing (which keeps the slot route), a few splats spanning most of
+# the frame's tiles, the parity scenes' saturating stack, and a cloud of
+# dead splats whose every slot is in the sentinel tile.
+RECORD_CONFIGS = {
+    "default": {}, "small-tiles": dict(tile_h=8, chunk_size=64), "axes-f16": dict(pack_axes_f16=True),
+    "axes-u32": dict(pack_axes_u32=True), "color-rgba8": dict(pack_color_rgba8=True),
+    "color-f32": dict(pack_color_f16=False), "no-discard": dict(alpha_discard=0.0, quad_clip=False),
+    "headline-no-center": dict(tp.HEADLINE, pack_center_u32=False),
+}
+RECORD_SCENES = ("sphere", "many-tiles", "saturating", "sentinel-only")
+
+
+def record_scene(scene):
+    """The port's projection of one of RECORD_SCENES at 192x128."""
+    if scene == "saturating":
+        return tp.proj_to_torch(tp.saturating_projection())
+    g = tsphere_scene(n=1500, seed=0).activate()
+    cam = TCamera.look_at([0, 0.5, -3.0], [0, 0, 0], [0, 1, 0], 45.0, tp.WIDTH, tp.HEIGHT)
+    proj = tproject(g, cam)
+    if scene == "many-tiles":
+        axis1, axis2 = proj.axis1.clone(), proj.axis2.clone()
+        axis1[[7, 800]] = torch.tensor([90.0, 20.0])
+        axis2[[7, 800]] = torch.tensor([-15.0, 60.0])
+        proj = proj._replace(axis1=axis1, axis2=axis2)
+    elif scene == "sentinel-only":
+        proj = proj._replace(opacity=torch.zeros_like(proj.opacity))
+    return proj
+
+
+@pytest.mark.parametrize("scene, name", [(s, "default") for s in RECORD_SCENES[1:]]
+                         + [("sphere", n) for n in RECORD_CONFIGS])
+def test_plain_record_route_equals_slot_route(scene, name):
+    proj, cfg = record_scene(scene), dataclasses.replace(tp.configs()[1], **RECORD_CONFIGS[name])
+    if scene == "saturating":
+        cfg = dataclasses.replace(cfg, pair_multiplier=24.0)
+    b, fields, real = bin_and_prepare(proj, tp.WIDTH, tp.HEIGHT, cfg)
+    b_r, record, real_r = bin_and_prepare(proj, tp.WIDTH, tp.HEIGHT, cfg, records=True)
+    assert record.shape == (proj.depth.shape[0], tpe.RECORD_FLOATS) and int(real_r) == int(real)
+    for field in ("pair_rank", "pair_tile", "tile_starts", "bounds", "num_pairs"):
+        assert torch.equal(getattr(b_r, field), getattr(b, field)), field
+    assert b_r.perm is None and b.perm is not None  # nothing per slot to move on the record route
+    raw, done, ck = trc.composite_tiles(fields, b.tile_starts, tp.WIDTH, tp.HEIGHT, cfg, checkpoints=True)
+    raw_r, done_r, ck_r = trc.composite_tiles(record, b_r.tile_starts, tp.WIDTH, tp.HEIGHT, cfg, checkpoints=True,
+                                              pair_rank=b_r.pair_rank)
+    assert torch.equal(raw_r.view(torch.int32), raw.view(torch.int32)) and torch.equal(done_r, done)
+    assert torch.equal(ck_r.state.view(torch.int32), ck.state.view(torch.int32))
+    used = int(b.tile_starts[-1])
+    if scene == "sentinel-only":
+        assert used == 0 and not raw.any()
+    else:
+        assert used > 0 and bool(raw[:, 3].max() > 0.5)
+    if scene == "many-tiles":
+        spans = torch.bincount(b.pair_rank[:used].long(), minlength=proj.depth.shape[0])
+        assert int(spans[7]) > 6 and int(spans[800]) > 6  # of the 12 tiles
+    if scene == "saturating":
+        assert int((done < b.tile_starts[1:] - b.tile_starts[:-1]).sum()) > 0  # early exits taken
+
+
+@pytest.mark.parametrize("name", ["default", "center-packing"])
+def test_frame_route_follows_the_config(name, monkeypatch):
+    # Rasterize without autograd hands K1 the records and the splat ids,
+    # except under center packing, whose centers depend on the tile.
+    cfg = tp.configs(**(tp.HEADLINE if name == "center-packing" else {}))[1]
+    assert tpe.per_splat_fields(cfg) == (name == "default")
+    proj = record_scene("sphere")
+    if name == "center-packing":
+        with pytest.raises(ValueError, match="center packing"):
+            bin_and_prepare(proj, tp.WIDTH, tp.HEIGHT, cfg, records=True)
+    seen = []
+    real = trc.composite_tiles
+
+    def spy(fields, *args, pair_rank=None, **kwargs):
+        seen.append((tuple(fields.shape), pair_rank is not None))
+        return real(fields, *args, pair_rank=pair_rank, **kwargs)
+
+    monkeypatch.setattr(trc, "composite_tiles", spy)
+    img, _ = trc.rasterize(proj, tp.WIDTH, tp.HEIGHT, cfg)
+    k = tpe.pair_budget(proj.depth.shape[0], cfg)
+    want = [((1500, tpe.RECORD_FLOATS), True)] if name == "default" else [((tpe.NUM_FIELDS, k), False)]
+    assert seen == want and bool(img[..., 3].max() > 0.5)

@@ -30,14 +30,23 @@
 // color sums go to ckpt[(seg_starts[t] + segment) * 4 * P + {0,1,2,3} * P + p].
 // K3 starts one block per segment from them.
 //
+// A pair's inputs come from one of two layouts.  The sorted per-slot fields
+// (10, k) (cx, cy, a1x, a1y, a2x, a2y, r, g, b, opacity), staged with the
+// per-pair divisions done once; or, with `pair_rank`, the per-splat record
+// (n, 12) of csrc/pair_table.cu, already in the stage's three float4 and
+// read at row pair_rank[g] (the splat id the pair sort writes for sorted
+// pair g): a coalesced 4-byte id, then three 16-byte loads.  The two give
+// the stage the same bits wherever each pair's fields depend on its splat
+// alone (no center packing).
+//
 // Bound on the H100: instruction issue.  The function needs 25 instructions
 // per pair and pixel evaluated (an accurate expf among them) and 10 more where
-// the pixel keeps the pair; this loop issues ~36 and ~11.  The fields it reads
-// are 40 bytes per pair.  Design: the cluster spreads the busiest tile over C
-// SMs, and clusters start heaviest tile first (`tile_order`); the per-pair
-// divisions are done once while staging, so the per-pixel loop is
-// multiplies, adds and one expf; a pair's stage is read as two float4 warp
-// broadcasts (a third, its color, where the pixel keeps it).
+// the pixel keeps the pair; this loop issues ~36 and ~11.  It reads 40 bytes
+// of fields a pair, or 4 of id and 48 of record.  Design: the cluster spreads
+// the busiest tile over C SMs, and clusters start heaviest tile first
+// (`tile_order`); the per-pair divisions are done before the pixel loop, so
+// it is multiplies, adds and one expf; a pair's stage is read as two float4
+// warp broadcasts (a third, its color, where the pixel keeps it).
 // Build with --fmad=false: the term order of q must round like the plain
 // PyTorch version's, and without fast math expf stays the accurate one.
 
@@ -54,7 +63,7 @@ constexpr int kMaxThreads = 512;
 
 template <int PPT>
 __global__ void __launch_bounds__(kMaxThreads)
-composite_fwd_kernel(const float* __restrict__ fields, long long k,
+composite_fwd_kernel(const float* __restrict__ fields, long long k, const int* __restrict__ pair_rank,
                      const int* __restrict__ tile_starts, const int* __restrict__ tile_order,
                      int tiles_x, int tile_w, int tile_h, int chunk, float eps,
                      float alpha_discard, float alpha_max, int quad_clip,
@@ -131,6 +140,13 @@ composite_fwd_kernel(const float* __restrict__ fields, long long k,
       const int m = (int)(hi - lo);
       for (int i = threadIdx.x; i < m; i += nthreads) {
         const long long g = lo + i;
+        if (pair_rank != nullptr) {
+          const float4* rec = reinterpret_cast<const float4*>(fields) + 3 * (long long)pair_rank[g];
+          s_cu[i] = rec[0];
+          s_vo[i] = rec[1];
+          s_rgb[i] = rec[2];
+          continue;
+        }
         const float a1x = fields[2 * k + g], a1y = fields[3 * k + g];
         const float a2x = fields[4 * k + g], a2y = fields[5 * k + g];
         const float a1_sq = fmaxf(a1x * a1x + a1y * a1y, 1e-12f);
@@ -218,8 +234,8 @@ int pixels_per_thread(int npix) {
   return 0;
 }
 
-using Kernel = void (*)(const float*, long long, const int*, const int*, int, int, int, int, float,
-                        float, float, int, float*, int*, const int*, int, float*);
+using Kernel = void (*)(const float*, long long, const int*, const int*, const int*, int, int, int, int,
+                        float, float, float, int, float*, int*, const int*, int, float*);
 
 Kernel kernel_for(int ppt) {
   switch (ppt) {
@@ -286,13 +302,14 @@ int composite_fwd_max_active_clusters(int npix, int chunk) {
   return e == cudaSuccess ? clusters : -(int)e;
 }
 
-// fields (10, k) float32 sorted by (tile, depth, splat); tile_starts
-// (num_tiles + 1,) int32; tile_order (num_tiles,) int32, the tiles in launch
-// order; raw (num_tiles + 1, 4, tile_w * tile_h) float32; pairs_done
-// (num_tiles,) int32.  ckpt null, or (segments, 4, tile_w * tile_h) float32
+// fields (10, k) float32 sorted by (tile, depth, splat), pair_rank null; or
+// pair_rank (k,) int32, each sorted pair's splat id, and fields the per-splat
+// record (n, 12) float32, 16-byte aligned.  tile_starts (num_tiles + 1,)
+// int32; tile_order (num_tiles,) int32, the tiles in launch order; raw
+// (num_tiles + 1, 4, tile_w * tile_h) float32; pairs_done (num_tiles,) int32.  ckpt null, or (segments, 4, tile_w * tile_h) float32
 // with seg_starts (num_tiles + 1,) int32 the first segment of each tile.
 // Launches on `stream`; returns the launch's error.
-int composite_fwd_launch(const float* fields, long long k, const int* tile_starts,
+int composite_fwd_launch(const float* fields, long long k, const int* pair_rank, const int* tile_starts,
                          const int* tile_order, int num_tiles, int tiles_x, int tile_w,
                          int tile_h, int chunk, float eps, float alpha_discard, float alpha_max,
                          int quad_clip, float* raw, int* pairs_done, const int* seg_starts,
@@ -303,7 +320,7 @@ int composite_fwd_launch(const float* fields, long long k, const int* tile_start
   cudaError_t e = configure(tile_w * tile_h, chunk, num_tiles, (cudaStream_t)stream, &kernel, &cfg,
                             &attr);
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaLaunchKernelEx(&cfg, kernel, fields, k, tile_starts, tile_order, tiles_x, tile_w,
+  return (int)cudaLaunchKernelEx(&cfg, kernel, fields, k, pair_rank, tile_starts, tile_order, tiles_x, tile_w,
                                  tile_h, chunk, eps, alpha_discard, alpha_max, quad_clip, raw,
                                  pairs_done, seg_starts, segment_steps, ckpt);
 }

@@ -9,16 +9,20 @@
 //                    one non-negative int64 sort key (splat < 2^31);
 //   fields[r*k+s]  = the 10 composite fields (cx, cy, a1x, a1y, a2x, a2y,
 //                    r, g, b, opacity) after the same lattice round trips as
-//                    the TPU package's pack / sort / unpack, decoded in place.
+//                    the TPU package's pack / sort / unpack, decoded in place;
+//                    not written when `fields` is null (keys only: a frame
+//                    whose composite reads each pair's fields from its
+//                    splat's record, csrc/pair_table.cu).
 // A tile none of whose pixel centers can pass the alpha / quad keep test is
 // replaced by the sentinel tile (the ellipse-interval cull).  Slots past the
 // demand get the sentinel key, splat id n and zero fields; slots past k are
 // never written, which truncates splat-major on overflow.
 //
 // Bound on the H100: bytes (the table and bounds read once, 48 bytes a slot
-// written).  Design: a block of 256 threads walks kWindowsPerBlock windows of
-// 512 consecutive slots, two consecutive slots a thread, so every store is a
-// coalesced vector (16 bytes of keys, 8 of each field row).  Runs are never
+// written, 8 with keys only).  Design: a block of 256 threads walks
+// kWindowsPerBlock windows of 512 consecutive slots, two consecutive slots a
+// thread, so every store is a coalesced vector (16 bytes of keys, 8 of each
+// field row).  Runs are never
 // empty, so a window's slots belong to at most 512 consecutive splats, from
 // r0 = the splat of its first slot (the TPU kernel's window start).  The
 // block finds r0 once, by a 32-way search of `bounds` in one warp (five
@@ -37,11 +41,12 @@
 // Build with --fmad=false: the cull and center arithmetic must round like
 // the plain PyTorch version (one rounding per operation).
 
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
 #include <climits>
+
+#include "pair_lattice.cuh"
 
 namespace {
 
@@ -62,19 +67,7 @@ constexpr int kWindow = kThreads * kSlotsPerThread;
 constexpr int kWindowsPerBlock = K2_WINDOWS_PER_BLOCK;
 constexpr int kBlocksPerSm = K2_BLOCKS_PER_SM;  // 55 KB of shared memory each
 
-constexpr int kQuadClip = 1;
-constexpr int kPackCenter = 2;
-constexpr int kPackAx32 = 4;
-constexpr int kPackAxesF16 = 8;
-constexpr int kPackColorF16 = 16;
-constexpr int kPackRgba8 = 32;
-
-// pack_axes_u32 lattice constants, rounded from the same double expressions
-// as tile_common.py.
-constexpr float kAx32Lo = (float)-1.3219281;
-constexpr float kAx32Step = (float)((12.0 - -1.3219281) / 1023.0);
-constexpr float kThetaStep = (float)(6.2831853071795864769 / 4096.0);
-constexpr float kPi = (float)3.14159265358979324;
+using namespace pair_lattice;
 
 // Per-splat values of a window, one row of kWindow each.
 enum Value {
@@ -94,17 +87,6 @@ struct WindowSplats {
   int nx[kWindow];
   float v[kValues][kWindow];
 };
-
-__device__ __forceinline__ float f16_round_trip(float x) {
-  // Exact on the flushed f16 lattice that quantize_view_fp16 produces.
-  float r = __half2float(__float2half_rn(x));
-  return fabsf(r) < 6.103515625e-05f ? copysignf(0.0f, x) : r;
-}
-
-__device__ __forceinline__ float unorm8_round_trip(float x, float scale) {
-  unsigned code = (unsigned)(int)floorf(x * scale + 0.5f) & 0xFFu;
-  return (float)code / scale;
-}
 
 __device__ __forceinline__ float qcap_of(float op, float alpha_discard) {
   // rho^2 = log(opacity / alpha_discard): beyond it alpha < alpha_discard.
@@ -170,13 +152,15 @@ __device__ int find_splat(const int* __restrict__ bounds, int n, long long s) {
 
 // A thread's two slots from s: vector stores (both keys, 16 bytes; both
 // slots of a field row, 8 bytes) when both are below k and every row is
-// aligned (k even), else one slot at a time.
+// aligned (k even), else one slot at a time.  kKeysOnly: the keys alone.
+template <bool kKeysOnly>
 __device__ __forceinline__ void store_slots(long long* __restrict__ comp, float* __restrict__ fields,
                                             long long k, long long s,
                                             const long long (&c)[kSlotsPerThread],
                                             const float (&f)[kFields][kSlotsPerThread]) {
   if (k % 2 == 0 && s + 2 <= k) {
     *reinterpret_cast<longlong2*>(comp + s) = make_longlong2(c[0], c[1]);
+    if (kKeysOnly) return;
 #pragma unroll
     for (int r = 0; r < kFields; ++r)
       *reinterpret_cast<float2*>(fields + r * k + s) = make_float2(f[r][0], f[r][1]);
@@ -186,6 +170,7 @@ __device__ __forceinline__ void store_slots(long long* __restrict__ comp, float*
   for (int q = 0; q < kSlotsPerThread; ++q) {
     if (s + q >= k) return;
     comp[s + q] = c[q];
+    if (kKeysOnly) continue;
 #pragma unroll
     for (int r = 0; r < kFields; ++r) fields[r * k + s + q] = f[r][q];
   }
@@ -196,7 +181,8 @@ __device__ __forceinline__ float cull_bound_of(float op, float alpha_discard) {
 }
 
 // Once per splat of the window: everything derived from its table column
-// that no tile changes.
+// that no tile changes (kKeysOnly: what the keys need).
+template <bool kKeysOnly>
 __device__ void derive_splat(WindowSplats& sp, int t, const float (&col)[kTableRows], int db,
                              float tile_w, float tile_h, float alpha_discard, int flags) {
   const bool quad_clip = flags & kQuadClip;
@@ -206,17 +192,11 @@ __device__ void derive_splat(WindowSplats& sp, int t, const float (&col)[kTableR
 
   float a1x, a1y, a2x, a2y;
   if (flags & kPackAx32) {
-    // Rows 2/3 hold the codes theta*1024 + n1 and n2 (float32-exact ints).
-    const float tcv = floorf(col[2] * (1.0f / 1024.0f));
-    const float n1cv = col[2] - tcv * 1024.0f;
-    const float theta = tcv * kThetaStep - kPi;
-    const float ct = cosf(theta), st = sinf(theta);
-    const float n1v = exp2f(kAx32Lo + n1cv * kAx32Step);
-    const float n2v = exp2f(kAx32Lo + col[3] * kAx32Step);
-    a1x = n1v * ct;
-    a1y = n1v * st;
-    a2x = n2v * st;
-    a2y = -n2v * ct;
+    const Axes a = decode_ax32(col[2], col[3]);
+    a1x = a.a1x;
+    a1y = a.a1y;
+    a2x = a.a2x;
+    a2y = a.a2y;
   } else {
     a1x = col[2];
     a1y = col[3];
@@ -234,6 +214,7 @@ __device__ void derive_splat(WindowSplats& sp, int t, const float (&col)[kTableR
   sp.v[kInv1][t] = 1.0f / fmaxf(a1x * a1x + a1y * a1y, 1e-12f);
   sp.v[kInv2][t] = 1.0f / fmaxf(a2x * a2x + a2y * a2y, 1e-12f);
   sp.v[kCullBound][t] = cull_bound;
+  if (kKeysOnly) return;
 
   float out[4];
   if (flags & kPackRgba8) {
@@ -294,6 +275,10 @@ __device__ __forceinline__ void load_column(const float* __restrict__ table, int
   for (int r = 0; r < kTableRows; ++r) col[r] = table[(long long)r * n + i];
 }
 
+// kKeysOnly: the keys alone (`fields` unused), a specialization of its own,
+// so that the fields' work costs the keys-only kernel nothing and the
+// kernel with fields keeps its registers.
+template <bool kKeysOnly>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 expand_pairs_kernel(const float* __restrict__ table, const int* __restrict__ bounds, int n,
                     long long k, int tiles_x, int num_tiles, float tile_w, float tile_h, int db,
@@ -331,7 +316,7 @@ expand_pairs_kernel(const float* __restrict__ table, const int* __restrict__ bou
 #pragma unroll
         for (int r = 0; r < kFields; ++r) f[r][q] = 0.0f;
       }
-      store_slots(comp, fields, k, s0, c, f);
+      store_slots<kKeysOnly>(comp, fields, k, s0, c, f);
       continue;
     }
     const long long w_end = min(w0 + kWindow, num_slots);  // end of the window's demand
@@ -351,7 +336,7 @@ expand_pairs_kernel(const float* __restrict__ table, const int* __restrict__ bou
     // them, kThreads at a time (a window holds ~130 at 6.1M splats and
     // 23.5M slots), with the run start after the last one.
     sp.start[tid] = start;
-    if (start < w_end) derive_splat(sp, tid, col, db, tile_w, tile_h, alpha_discard, flags);
+    if (start < w_end) derive_splat<kKeysOnly>(sp, tid, col, db, tile_w, tile_h, alpha_discard, flags);
     __syncthreads();
     int loaded = kThreads;
     while (loaded <= kWindow && sp.start[loaded - 1] < w_end) {
@@ -362,7 +347,7 @@ expand_pairs_kernel(const float* __restrict__ table, const int* __restrict__ bou
         if (t < kWindow && st < w_end) {
           float more[kTableRows];
           load_column(table, n, r0 + t, more);
-          derive_splat(sp, t, more, db, tile_w, tile_h, alpha_discard, flags);
+          derive_splat<kKeysOnly>(sp, t, more, db, tile_w, tile_h, alpha_discard, flags);
         }
       }
       loaded = min(loaded + kThreads, kWindow + 1);
@@ -433,6 +418,7 @@ expand_pairs_kernel(const float* __restrict__ table, const int* __restrict__ bou
       const int tile_i = touches ? tile : num_tiles;
       const unsigned key = ((unsigned)tile_i << db) | (xd & dq_mask);
       c[q] = ((long long)key << 31) | (r0 + li);
+      if (kKeysOnly) continue;
 
       // Field values after the pack / unpack round trips.
       if (f16_axes) {
@@ -473,7 +459,7 @@ expand_pairs_kernel(const float* __restrict__ table, const int* __restrict__ bou
         f[1][q] = cy;
       }
     }
-    store_slots(comp, fields, k, s0, c, f);
+    store_slots<kKeysOnly>(comp, fields, k, s0, c, f);
     if (prefetch && start < w_end_next) load_column(table, n, r0_next + tid, col);
     r0 = r0_next;
   }
@@ -485,33 +471,43 @@ expand_pairs_kernel(const float* __restrict__ table, const int* __restrict__ bou
 // carveout, so that kBlocksPerSm blocks fit on an SM: once per device.
 static std::atomic<unsigned long long> g_attributes_set{0};  // bit d: device d
 
+template <bool kKeysOnly>
+static cudaError_t set_kernel_attributes() {
+  cudaError_t err = cudaFuncSetAttribute(expand_pairs_kernel<kKeysOnly>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(WindowSplats));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(expand_pairs_kernel<kKeysOnly>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
 static cudaError_t set_attributes() {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
   if (g_attributes_set.load() & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(expand_pairs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sizeof(WindowSplats));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(expand_pairs_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
+  err = set_kernel_attributes<false>();
+  if (err == cudaSuccess) err = set_kernel_attributes<true>();
   if (err == cudaSuccess) g_attributes_set.fetch_or(bit);
   return err;
 }
 
 extern "C" {
 
-// Blocks of K2 resident on one SM of the current device (negative: a CUDA
-// error).  chip_smoke.py holds it to kBlocksPerSm, which __launch_bounds__
-// sizes the registers for.
+// Blocks of K2 resident on one SM of the current device, the fewer of its
+// two specializations' (negative: a CUDA error).  chip_smoke.py holds it to
+// kBlocksPerSm, which __launch_bounds__ sizes the registers for.
 int expand_pairs_blocks_per_sm() {
   cudaError_t err = set_attributes();
-  int blocks = 0;
+  int blocks = 0, keys_only = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, expand_pairs_kernel, kThreads,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, expand_pairs_kernel<false>, kThreads,
                                                         sizeof(WindowSplats));
-  return err == cudaSuccess ? blocks : -(int)err;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&keys_only, expand_pairs_kernel<true>, kThreads,
+                                                        sizeof(WindowSplats));
+  return err == cudaSuccess ? (blocks < keys_only ? blocks : keys_only) : -(int)err;
 }
 
 const char* pair_expand_error_string(int status) {
@@ -519,7 +515,8 @@ const char* pair_expand_error_string(int status) {
 }
 
 // table (14, n) float32 row-major; bounds (n + 1,) int32; comp (k,) int64;
-// fields (10, k) float32.  Launches on `stream`; returns cudaGetLastError().
+// fields (10, k) float32, or null for the keys alone.  Launches on `stream`;
+// returns cudaGetLastError().
 int expand_pairs_launch(const float* table, const int* bounds, int n, long long k,
                         int tiles_x, int num_tiles, int tile_w, int tile_h, int db,
                         float alpha_discard, int flags, long long* comp, float* fields,
@@ -530,7 +527,8 @@ int expand_pairs_launch(const float* table, const int* bounds, int n, long long 
   const int smem = (int)sizeof(WindowSplats);
   const cudaError_t err = set_attributes();
   if (err != cudaSuccess) return (int)err;
-  expand_pairs_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  auto kernel = fields == nullptr ? expand_pairs_kernel<true> : expand_pairs_kernel<false>;
+  kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
       table, bounds, n, k, tiles_x, num_tiles, (float)tile_w, (float)tile_h, db, alpha_discard,
       flags, comp, fields);
   return (int)cudaGetLastError();

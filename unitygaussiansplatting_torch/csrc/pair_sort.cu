@@ -17,9 +17,10 @@
 //
 // Bound on the H100 by bytes.  At K slots the sort reads K2's int64 keys
 // twice (the upsweep and the first pass) and moves 8 bytes a slot in and
-// out of each pass; the last pass writes the int64 permutation, the tile of
-// each sorted pair (key >> db) and its splat id (a gather by slot): ~90
-// bytes a slot instead of the library's ~256.  Each pass moves its bytes at
+// out of each pass; the last pass writes the int64 permutation (unless the
+// caller has no per-slot data to move by it), the tile of each sorted pair
+// (key >> db) and its splat id (a gather by slot): ~90 bytes a slot instead
+// of the library's ~256.  Each pass moves its bytes at
 // about the rate of the library's own passes (~2.1 TB/s on the H100), so
 // the gain is the bytes.
 // The design (Onesweep, Adinets and Merrill 2022, arXiv 2206.01784) reads
@@ -273,7 +274,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) pass_kernel(
       const unsigned kk = s_keys[at], vv = s_vals[at];
       const int dest = s_base[(kk >> shift) & (kRadix - 1)] + at;
       if (kLast) {
-        perm[dest] = (long long)vv;
+        if (perm != nullptr) perm[dest] = (long long)vv;
         pair_tile[dest] = (int)(kk >> db);
         pair_rank[dest] = kFirst ? (int)((unsigned)comp[vv] & 0x7FFFFFFFu) : (int)splats[vv];
       } else {
@@ -330,9 +331,9 @@ int pair_sort_upsweep_launch(const void* comp, int k, int passes, void* state, v
 // Pass `pass` of `passes` over digit (key >> 8 * pass) & 255.  keys and
 // vals (2, k) int32, the double buffers: pass p writes buffer p % 2 and
 // reads buffer (p - 1) % 2 (the first pass reads comp and writes splats
-// (k,) int32, each slot's splat id).  The last pass writes perm (k,) int64,
-// pair_tile (k,) int32 (key >> db) and pair_rank (k,) int32 (the splat id
-// of the slot).  Launches on `stream`
+// (k,) int32, each slot's splat id).  The last pass writes perm (k,) int64
+// (null: not written), pair_tile (k,) int32 (key >> db) and pair_rank (k,)
+// int32 (the splat id of the slot).  Launches on `stream`
 // (nothing for k = 0); returns cudaGetLastError().
 int pair_sort_pass_launch(const void* comp, void* keys, void* vals, void* splats, int k, int pass, int passes, int db,
                           void* state, void* lookback, int tiles, void* perm, void* pair_tile, void* pair_rank,

@@ -24,8 +24,19 @@
 // theta*1024 + n1 and n2 and rows 4/5 are 0.  A dead splat gets x0 =
 // num_tiles (the sentinel tile), y0 = 0, nx = 1, depth key 0.
 //
-// Bound on the H100: bytes (45 read and 60 written per splat); the ~600
-// instructions a splat of the lattices and rects hide under them.  Every
+// With a `record` to write (a frame whose fields depend on the splat alone,
+// no center packing), the splat's record for K1 too: its table column
+// decoded as K2 decodes a slot's fields (csrc/pair_lattice.cuh), then staged
+// as K1 stages a pair (csrc/composite_fwd.cu), as three float4
+//   (cx, cy, a1x / |a1|^2, a1y / |a1|^2), (a2x / |a2|^2, a2y / |a2|^2,
+//   opacity, 0), (r, g, b, 0),
+// |a|^2 = max(ax * ax + ay * ay, 1e-12).  K1 reads a pair's record through
+// its splat id, so its stage holds the bits the sorted fields gave it.  A
+// block's records go through shared memory, so that their stores coalesce.
+//
+// Bound on the H100: bytes (45 read and 60 written per splat, 48 more with
+// the record); the ~600 instructions a splat of the lattices and rects hide
+// under them.  Every
 // value rounds like the plain PyTorch version, bit for bit: build with
 // --fmad=false and without --use_fast_math (accurate atan2f, log2f, logf,
 // sqrtf, cosf, sinf, exp2f); clamp, minimum and maximum propagate NaN as
@@ -36,22 +47,16 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include "pair_lattice.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
-constexpr int kQuadClip = 1;
-constexpr int kPackAx32 = 4;
-constexpr int kPackAxesF16 = 8;
-constexpr int kPackColorF16 = 16;
-constexpr int kPackRgba8 = 32;
+using namespace pair_lattice;
 
 constexpr float kF16MinNormal = (float)6.103515625e-05;
-constexpr float kPi = (float)3.14159265358979324;
 constexpr float kThetaScale = (float)(4096.0 / 6.2831853071795864769);
-constexpr float kThetaStep = (float)(6.2831853071795864769 / 4096.0);
-constexpr float kAx32Lo = (float)-1.3219281;
-constexpr float kAx32Step = (float)((12.0 - -1.3219281) / 1023.0);
 
 // torch.clamp / torch.minimum / torch.maximum: NaN in, NaN out.
 __device__ __forceinline__ float clamp_min(float x, float lo) { return isnan(x) ? x : fmaxf(x, lo); }
@@ -99,10 +104,31 @@ struct Columns {
   long long cs0, cs1, a1s0, a1s1, a2s0, a2s1, cls0, cls1, os0, ds0, vs0;
 };
 
-// One splat's table column and slot count; returns its real pair count.
+// K1's record of a splat from its table column `col`.
+__device__ void write_record(const float (&col)[14], int flags, float4* __restrict__ out) {
+  Axes a = (flags & kPackAx32) ? decode_ax32(col[2], col[3]) : Axes{col[2], col[3], col[4], col[5]};
+  if ((flags & kPackAxesF16) && !(flags & kPackAx32))
+    a = Axes{f16_round_trip(a.a1x), f16_round_trip(a.a1y), f16_round_trip(a.a2x), f16_round_trip(a.a2y)};
+  float c[4] = {col[6], col[7], col[8], col[9]};  // r, g, b, opacity
+  if (flags & kPackRgba8) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[j] = unorm8_round_trip(c[j], j < 3 ? 127.5f : 255.0f);
+  } else if (flags & kPackColorF16) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[j] = f16_round_trip(c[j]);
+  }
+  const float a1_sq = fmaxf(a.a1x * a.a1x + a.a1y * a.a1y, 1e-12f);
+  const float a2_sq = fmaxf(a.a2x * a.a2x + a.a2y * a.a2y, 1e-12f);
+  out[0] = make_float4(col[0], col[1], a.a1x / a1_sq, a.a1y / a1_sq);
+  out[1] = make_float4(a.a2x / a2_sq, a.a2y / a2_sq, c[3], 0.0f);
+  out[2] = make_float4(c[0], c[1], c[2], 0.0f);
+}
+
+// One splat's table column, slot count and, where `record` is not null,
+// its record there (three float4); returns its real pair count.
 __device__ int splat_column(const Columns& in, long long i, int n, int tiles_x, int tiles_y,
                             float tile_w, float tile_h, int db, float alpha_discard, int flags,
-                            float* __restrict__ table, int* __restrict__ bounds) {
+                            float* __restrict__ table, int* __restrict__ bounds, float4* __restrict__ record) {
   const int num_tiles = tiles_x * tiles_y;
   const float cx = in.center[i * in.cs0], cy = in.center[i * in.cs0 + in.cs1];
   float a1x = in.axis1[i * in.a1s0], a1y = in.axis1[i * in.a1s0 + in.a1s1];
@@ -193,7 +219,11 @@ __device__ int splat_column(const Columns& in, long long i, int n, int tiles_x, 
   rows[12] = live ? (float)nx : 1.0f;
   rows[13] = live ? (float)dq : 0.0f;
 #pragma unroll
-  for (int row = 0; row < 14; ++row) table[row * (long long)n + i] = scrub(rows[row]);
+  for (int row = 0; row < 14; ++row) {
+    rows[row] = scrub(rows[row]);
+    table[row * (long long)n + i] = rows[row];
+  }
+  if (record != nullptr) write_record(rows, flags, record);
   bounds[i + 1] = live ? count : 1;
   return count;
 }
@@ -201,18 +231,23 @@ __device__ int splat_column(const Columns& in, long long i, int n, int tiles_x, 
 __global__ void __launch_bounds__(kThreads)
 pair_table_kernel(Columns in, int n, int tiles_x, int tiles_y, float tile_w, float tile_h, int db,
                   float alpha_discard, int flags, float* __restrict__ table, int* __restrict__ bounds,
-                  int* __restrict__ num_real) {
+                  int* __restrict__ num_real, float4* __restrict__ record) {
   __shared__ int warp_sums[kThreads / 32];
+  __shared__ float4 block_records[3 * kThreads];
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i == 0) bounds[0] = 0;
   int count = 0;
   if (i < n)
     count = splat_column(in, i, n, tiles_x, tiles_y, tile_w, tile_h, db, alpha_discard, flags, table,
-                         bounds);
+                         bounds, record != nullptr ? block_records + 3 * threadIdx.x : nullptr);
   // The block's real pairs, one atomicAdd: integer sums are exact in any order.
   count = __reduce_add_sync(0xffffffffu, count);
   if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = count;
   __syncthreads();
+  if (record != nullptr) {
+    const long long first = 3LL * blockIdx.x * kThreads, end = 3LL * n;
+    for (int j = threadIdx.x; j < 3 * kThreads && first + j < end; j += kThreads) record[first + j] = block_records[j];
+  }
   if (threadIdx.x == 0) {
     int sum = 0;
 #pragma unroll
@@ -231,21 +266,22 @@ const char* pair_table_error_string(int status) {
 
 // Element strides for every input column; table (14, n) float32 row-major,
 // bounds (n + 1,) int32 (gets 0 and the slot counts), num_real () int32
-// (zeroed by the caller; gets the real pair count).  Launches on `stream`;
-// returns cudaGetLastError().
+// (zeroed by the caller; gets the real pair count); record (n, 12) float32,
+// 16-byte aligned, or null for none.  Launches on `stream`; returns
+// cudaGetLastError().
 int pair_table_launch(const float* center, long long cs0, long long cs1, const float* axis1,
                       long long a1s0, long long a1s1, const float* axis2, long long a2s0,
                       long long a2s1, const float* color, long long cls0, long long cls1,
                       const float* opacity, long long os0, const float* depth, long long ds0,
                       const unsigned char* valid, long long vs0, int n, int tiles_x, int tiles_y,
                       int tile_w, int tile_h, int db, float alpha_discard, int flags, float* table,
-                      int* bounds, int* num_real, void* stream) {
+                      int* bounds, int* num_real, float* record, void* stream) {
   const Columns in{center, axis1, axis2, color, opacity, depth, valid, cs0, cs1, a1s0, a1s1,
                    a2s0, a2s1, cls0, cls1, os0, ds0, vs0};
   const long long blocks = ((long long)n + kThreads - 1) / kThreads;
   pair_table_kernel<<<(unsigned)(blocks > 0 ? blocks : 1), kThreads, 0, (cudaStream_t)stream>>>(
       in, n, tiles_x, tiles_y, (float)tile_w, (float)tile_h, db, alpha_discard, flags, table, bounds,
-      num_real);
+      num_real, reinterpret_cast<float4*>(record));
   return (int)cudaGetLastError();
 }
 

@@ -30,17 +30,19 @@ class TileBinning(NamedTuple):
     into ``depth_order``, and ``rank_counts`` the pairs of each rank.  The
     fused pipeline (``pair_expand.bin_and_prepare``) generates them
     splat-major: ``pair_rank`` holds splat ids (``depth_order`` None, the
-    identity), and ``perm``/``bounds`` carry what its backward reads.
-    Consumers go through :attr:`pair_splat`.
+    identity), K1's input on a frame's record route (sorted pair ``j``
+    reads its fields from record ``pair_rank[j]``), and ``perm``/``bounds``
+    carry what its backward reads.  Other consumers go through
+    :attr:`pair_splat`.
     """
 
-    pair_rank: torch.Tensor  # (K,) int32 index into depth_order (n = sentinel)
+    pair_rank: torch.Tensor  # (K,) int32 index into depth_order (n = sentinel); fused: K1 reads records by it
     pair_tile: torch.Tensor  # (K,) int32 tile id per pair (num_tiles = sentinel)
     tile_starts: torch.Tensor  # (T + 1,) int32: pairs of tile t are [s[t], s[t+1])
     num_pairs: torch.Tensor  # () int32 demand before budget clipping
     depth_order: torch.Tensor | None = None  # (N,) int32 depth rank -> splat id; None: identity
     rank_counts: torch.Tensor | None = None  # (N,) int32 pairs generated per depth rank
-    perm: torch.Tensor | None = None  # (K,) int64 slot of each sorted pair (fused)
+    perm: torch.Tensor | None = None  # (K,) int64 slot of each sorted pair (fused, per-slot fields only)
     bounds: torch.Tensor | None = None  # (N + 1,) int32: slots of splat i are [b[i], b[i+1]) (fused)
 
     @property

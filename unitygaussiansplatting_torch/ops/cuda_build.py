@@ -6,10 +6,11 @@ its own shared library, loaded with ``ctypes``; every function of its
 (:func:`c_signatures`), so a kernel's parameters are written once, in its
 source.  Libraries go into
 ``build/cuda/`` beside the package (listed in ``.gitignore``), named by a
-hash of the source and the flags, so an edited source is rebuilt at its next
-use and an unchanged one is not.  Nothing is compiled at import: the first
-wrapper call on a CUDA tensor (or :func:`build`) does it.  Wrappers
-launch through :func:`launch`, which counts each launch in :data:`launched`.
+hash of the source, the headers of ``csrc/`` and the flags, so an edited
+source or header is rebuilt at its next use and an unchanged one is not.
+Nothing is compiled at import: the first wrapper call on a CUDA tensor (or
+:func:`build`) does it.  Wrappers launch through :func:`launch`, which
+counts each launch in :data:`launched`.
 """
 
 from __future__ import annotations
@@ -64,6 +65,8 @@ def nvcc_path() -> str:
 
 def library_path(source: str) -> Path:
     digest = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 

@@ -6,24 +6,33 @@ The port of ``bin_and_prepare`` (unitygaussiansplatting_tpu/ops/pair_expand.py):
    rounding, the tile rect, the slot count (one sentinel slot per dead
    splat, so no run is empty), the quantized depth key and the (14, N)
    table column, plus the real pair count; then one in-place
-   ``torch.cumsum`` of the slot counts gives the run bounds.
+   ``torch.cumsum`` of the slot counts gives the run bounds.  On a frame's
+   route (``records``) it also writes each splat's record for K1: its
+   composite fields, decoded from the configured lattices and staged as K1
+   stages a pair, (N, 12).
 2. K2, :func:`expand_pairs`: per slot, the fused sort key
-   ``((tile << db) | depth_key) << 31 | splat`` as one int64 and the 10
-   composite fields, decoded from the configured lattices.
+   ``((tile << db) | depth_key) << 31 | splat`` as one int64, and, unless
+   the frame reads the records, the 10 composite fields, decoded from the
+   configured lattices.
 3. The pair sort, :func:`sort_pairs` (this replaces the TPU package's
    two-key ``jax.lax.sort``): on CUDA a stable radix sort written by hand
    (``csrc/pair_sort.cu``) of the key's top bits, ``comp >> 31``, with each
-   pair's slot as its value, then a gather of the fields; its last pass
-   writes each sorted pair's tile and splat id, and a search over the
-   sorted tiles gives ``tile_starts``.  The key is shifted by 31, not 32:
-   keys >= 2^31 occur (db = 23 at 475 tiles), and a 32-bit shift would make
-   them negative.  On the CPU, :func:`sort_pairs_plain`: one ``torch.sort``
-   of the int64 keys, the gather, ``searchsorted``.
+   pair's slot as its value; its last pass writes each sorted pair's tile
+   and splat id (``TileBinning.pair_rank``), and a search over the sorted
+   tiles gives ``tile_starts``.  With per-slot fields a gather by the
+   permutation sorts them; with records there is nothing to gather: K1
+   reads sorted pair ``j``'s fields from record ``pair_rank[j]``.  The key
+   is shifted by 31, not 32: keys >= 2^31 occur (db = 23 at 475 tiles), and
+   a 32-bit shift would make them negative.  On the CPU,
+   :func:`sort_pairs_plain`: one ``torch.sort`` of the int64 keys, the
+   gather, ``searchsorted``.
 
-The sort's permutation (``TileBinning.perm``: the slot of each sorted pair)
-and the slot runs (``TileBinning.bounds``) are kept for the backward, which
-writes each pair's gradient back into its slot, where the runs are
-splat-major.
+A frame without autograd takes the records wherever every field depends on
+the splat alone (:func:`per_splat_fields`: no center packing).  The graph
+route keeps the per-slot fields, which K3 reads, and the sort's permutation
+(``TileBinning.perm``: the slot of each sorted pair) and the slot runs
+(``TileBinning.bounds``), for the backward, which writes each pair's
+gradient back into its slot, where the runs are splat-major.
 """
 
 from __future__ import annotations
@@ -40,6 +49,9 @@ from .tile_common import (
 
 NUM_FIELDS = 10  # cx, cy, a1x, a1y, a2x, a2y, r, g, b, opacity
 TABLE_ROWS = 14  # the 10 fields, then x0, y0, nx, depth key
+# A splat's record for K1: (cx, cy, a1x/|a1|^2, a1y/|a1|^2), (a2x/|a2|^2,
+# a2y/|a2|^2, opacity, 0), (r, g, b, 0).
+RECORD_FLOATS = 12
 SPLAT_BITS = 31  # splat id bits below the fused key in the int64 sort key
 SORT_DIGIT_BITS = 8  # bits a pass of the pair sort orders
 
@@ -61,7 +73,30 @@ def expand_flags(config: RasterizeConfig) -> int:
     )
 
 
-def prepare_table_plain(proj, width: int, height: int, config: RasterizeConfig):
+def per_splat_fields(config: RasterizeConfig) -> bool:
+    """Whether every composite field of a pair depends on its splat alone,
+    so that a frame may read them from one record a splat: all but center
+    packing, whose center is an offset from the pair's tile."""
+    return not expand_flags(config) & PACK_CENTER
+
+
+def inverse_axes(a1x, a1y, a2x, a2y):
+    """K1's per-pair divisions: ``a / max(|a|^2, 1e-12)`` for both axes."""
+    a1_sq = torch.clamp(a1x * a1x + a1y * a1y, min=1e-12)
+    a2_sq = torch.clamp(a2x * a2x + a2y * a2y, min=1e-12)
+    return a1x / a1_sq, a1y / a1_sq, a2x / a2_sq, a2y / a2_sq
+
+
+def splat_records_plain(table, config: RasterizeConfig):
+    """Plain PyTorch version of the record the per-splat pass writes with
+    ``records``: (N, 12) float32, each splat's table column decoded as K2
+    decodes its slots' fields and divided as K1 stages a pair."""
+    _, (a1x, a1y, a2x, a2y), (r, g, b, op) = _splat_fields(table, expand_flags(config))
+    zero = torch.zeros_like(op)
+    return torch.stack([table[0], table[1], *inverse_axes(a1x, a1y, a2x, a2y), op, zero, r, g, b, zero], 1)
+
+
+def prepare_table_plain(proj, width: int, height: int, config: RasterizeConfig, records: bool = False):
     """Plain PyTorch version of the per-splat pass: the same function as
     :func:`prepare_table`, whole-tensor operations over the splats."""
     proj = quantize_view_fp16(proj, config)
@@ -94,8 +129,10 @@ def prepare_table_plain(proj, width: int, height: int, config: RasterizeConfig):
         ]
     )
     # Dead-splat geometry can be NaN (behind-camera projections).
-    table = torch.where(torch.isfinite(table), table, 0.0).contiguous()
-    return table.detach(), bounds, num_real
+    table = torch.where(torch.isfinite(table), table, 0.0).contiguous().detach()
+    if records:
+        return table, bounds, num_real, splat_records_plain(table, config)
+    return table, bounds, num_real
 
 
 def scan_bounds(bounds):
@@ -105,9 +142,11 @@ def scan_bounds(bounds):
     return bounds.cumsum_(0)
 
 
-def prepare_table(proj, width: int, height: int, config: RasterizeConfig):
+def prepare_table(proj, width: int, height: int, config: RasterizeConfig, records: bool = False):
     """Per-splat inputs of K2: ``(table (14, N) f32, bounds (N+1,) i32,
     num_real () i32)``; splat ``i`` owns slots ``[bounds[i], bounds[i+1])``.
+    With ``records`` a fourth output, K1's per-splat record (N, 12) f32
+    (:func:`splat_records_plain`), which needs :func:`per_splat_fields`.
 
     Table rows: cx, cy, a1x, a1y, a2x, a2y, r, g, b, opacity (0 for dead
     splats), x0, y0, nx, depth key; with ``pack_axes_u32`` rows 2/3 hold the
@@ -120,13 +159,16 @@ def prepare_table(proj, width: int, height: int, config: RasterizeConfig):
     at their strides (views need no copy) and writes the table column, the
     slot count into ``bounds[1 + i]`` and its block's real pairs into
     ``num_real``; :func:`scan_bounds` then turns the counts into the run
-    bounds.  Bound on the H100 by bytes (45 read and 60 written per splat).
-    CPU tensors take :func:`prepare_table_plain`; CUDA tensors launch the
-    kernel.
+    bounds.  Bound on the H100 by bytes (45 read and 60 written per splat,
+    48 more with the record).  CPU tensors take :func:`prepare_table_plain`;
+    CUDA tensors launch the kernel.
     """
+    if records and not per_splat_fields(config):
+        raise ValueError("records need fields that depend on the splat alone; center packing makes the "
+                         "center depend on the tile")
     dev = proj.depth.device
     if dev.type == "cpu":
-        return prepare_table_plain(proj, width, height, config)
+        return prepare_table_plain(proj, width, height, config, records)
     if dev.type != "cuda":
         raise ValueError(f"prepare_table runs on CPU or CUDA tensors, got {dev}")
     n = proj.depth.shape[0]
@@ -143,11 +185,15 @@ def prepare_table(proj, width: int, height: int, config: RasterizeConfig):
     table = torch.empty((TABLE_ROWS, n), dtype=torch.float32, device=dev)
     bounds = torch.empty(n + 1, dtype=torch.int32, device=dev)
     num_real = torch.zeros((), dtype=torch.int32, device=dev)
+    record = torch.empty((n, RECORD_FLOATS), dtype=torch.float32, device=dev) if records else None
     cuda_build.launch(
         "pair_table", "pair_table_launch", dev,
         *cols, n, tiles_x, tiles_y, config.tile_w, config.tile_h, depth_key_bits(tiles_x * tiles_y, config),
         config.alpha_discard, expand_flags(config), table.data_ptr(), bounds.data_ptr(), num_real.data_ptr(),
+        record.data_ptr() if records else None,
     )
+    if records:
+        return table, scan_bounds(bounds), num_real, record
     return table, scan_bounds(bounds), num_real
 
 
@@ -198,7 +244,33 @@ def _min_abs_q(ax, ay, inv, dx_lo, dx_hi, dy_lo, dy_hi):
     return torch.clamp(torch.maximum(q_min, -q_max), min=0.0)
 
 
-def expand_pairs_plain(table, bounds, k: int, width: int, height: int, config: RasterizeConfig):
+def _splat_fields(table, flags: int):
+    """What K2 derives from a splat's table column for any of its tiles:
+    ``(axes, field_axes, colors)``, the decoded axes (a1x, a1y, a2x, a2y),
+    the axes after the pack round trips, and (r, g, b, opacity) after them;
+    each a (N,) tensor, computed once a splat."""
+    if flags & PACK_AX32:
+        tcv = torch.floor(table[2] * (1.0 / 1024.0))
+        n1cv = table[2] - tcv * 1024.0
+        theta = tcv * (AX32_TWO_PI / 4096.0) - PI
+        ct, st = torch.cos(theta), torch.sin(theta)
+        n1v = torch.exp2(AX32_LO + n1cv * AX32_STEP)
+        n2v = torch.exp2(AX32_LO + table[3] * AX32_STEP)
+        axes = (n1v * ct, n1v * st, n2v * st, -n2v * ct)
+    else:
+        axes = (table[2], table[3], table[4], table[5])
+    field_axes = tuple(_f16_round_trip(a) for a in axes) if flags & PACK_AXES_F16 and not flags & PACK_AX32 else axes
+    if flags & PACK_RGBA8:
+        colors = tuple(_unorm8_round_trip(c, 127.5) for c in table[6:9]) + (_unorm8_round_trip(table[9], 255.0),)
+    elif flags & PACK_COLOR_F16:
+        colors = tuple(_f16_round_trip(c) for c in table[6:10])
+    else:
+        colors = tuple(table[6:10])
+    return axes, field_axes, colors
+
+
+def expand_pairs_plain(table, bounds, k: int, width: int, height: int, config: RasterizeConfig,
+                       keys_only: bool = False):
     """Plain PyTorch version of K2: the same function, vectorized over slots."""
     n = table.shape[1]
     tiles_x, tiles_y = tile_grid(width, height, config)
@@ -220,16 +292,8 @@ def expand_pairs_plain(table, bounds, k: int, width: int, height: int, config: R
     tile = ty * tiles_x + tx
     dq = col[13].to(torch.int64)
     cx, cy, op = col[0], col[1], col[9]
-    if flags & PACK_AX32:
-        tcv = torch.floor(col[2] * (1.0 / 1024.0))
-        n1cv = col[2] - tcv * 1024.0
-        theta = tcv * (AX32_TWO_PI / 4096.0) - PI
-        ct, st = torch.cos(theta), torch.sin(theta)
-        n1v = torch.exp2(AX32_LO + n1cv * AX32_STEP)
-        n2v = torch.exp2(AX32_LO + col[3] * AX32_STEP)
-        a1x, a1y, a2x, a2y = n1v * ct, n1v * st, n2v * st, -n2v * ct
-    else:
-        a1x, a1y, a2x, a2y = col[2], col[3], col[4], col[5]
+    splat_axes, splat_field_axes, splat_colors = _splat_fields(table, flags)
+    a1x, a1y, a2x, a2y = (a[idx] for a in splat_axes)
 
     # Ellipse-interval cull to the sentinel tile.
     tw, th = config.tile_w, config.tile_h
@@ -250,19 +314,11 @@ def expand_pairs_plain(table, bounds, k: int, width: int, height: int, config: R
     key = (tile_i << db) | dq
     sentinel = ((num_tiles << db) << SPLAT_BITS) | n
     comp = torch.where(live, (key << SPLAT_BITS) | splat, sentinel)
+    if keys_only:
+        return comp, None
 
-    if flags & PACK_AX32:
-        axes = [a1x, a1y, a2x, a2y]
-    elif flags & PACK_AXES_F16:
-        axes = [_f16_round_trip(a) for a in (a1x, a1y, a2x, a2y)]
-    else:
-        axes = [a1x, a1y, a2x, a2y]
-    if flags & PACK_RGBA8:
-        colors = [_unorm8_round_trip(c, 127.5) for c in col[6:9]] + [_unorm8_round_trip(op, 255.0)]
-    elif flags & PACK_COLOR_F16:
-        colors = [_f16_round_trip(c) for c in (col[6], col[7], col[8], op)]
-    else:
-        colors = [col[6], col[7], col[8], op]
+    axes = [a[idx] for a in splat_field_axes]
+    colors = [c[idx] for c in splat_colors]
     if flags & PACK_CENTER:
         tcx = (tile_i % tiles_x).to(torch.float32) * tw + 0.5 * tw
         tcy = torch.div(tile_i, tiles_x, rounding_mode="floor").to(torch.float32) * th + 0.5 * th
@@ -283,17 +339,20 @@ def expand_pairs_plain(table, bounds, k: int, width: int, height: int, config: R
     return comp, fields
 
 
-def expand_pairs(table, bounds, k: int, width: int, height: int, config: RasterizeConfig):
+def expand_pairs(table, bounds, k: int, width: int, height: int, config: RasterizeConfig,
+                 keys_only: bool = False):
     """K2: expand per-splat rows into ``k`` (splat, tile) slots.
 
-    Returns ``(comp (k,) int64, fields (10, k) float32)`` in slot order; see
-    ``csrc/pair_expand.cu`` for the layout.  Replaces the Pallas kernel
-    ``_expand_kernel`` (unitygaussiansplatting_tpu/ops/pair_expand.py:90).
-    Bound on the H100 by bytes (60 B per splat read, 48 B per slot
-    written).  A block of 256 threads walks 8 windows of 512 slots, two a
-    thread with coalesced 16- and 8-byte stores; the window's splats are
-    staged and derived once each in shared memory, and each slot does only
-    its tile's work.  CPU tensors take :func:`expand_pairs_plain`; CUDA
+    Returns ``(comp (k,) int64, fields (10, k) float32)`` in slot order, or
+    ``(comp, None)`` with ``keys_only`` (a frame that reads the per-splat
+    records); see ``csrc/pair_expand.cu`` for the layout.  Replaces the
+    Pallas kernel ``_expand_kernel``
+    (unitygaussiansplatting_tpu/ops/pair_expand.py:90).  Bound on the H100
+    by bytes (60 B per splat read, 48 B per slot written, 8 keys only).  A
+    block of 256 threads walks 8 windows of 512 slots, two a thread with
+    coalesced 16- and 8-byte stores; the window's splats are staged and
+    derived once each in shared memory, and each slot does only its tile's
+    work.  CPU tensors take :func:`expand_pairs_plain`; CUDA
     tensors launch the kernel.
     """
     if table.dim() != 2 or table.shape[0] != TABLE_ROWS or table.dtype != torch.float32:
@@ -304,7 +363,7 @@ def expand_pairs(table, bounds, k: int, width: int, height: int, config: Rasteri
     if bounds.device != table.device:
         raise ValueError("table and bounds must be on one device")
     if table.device.type == "cpu":
-        return expand_pairs_plain(table, bounds, k, width, height, config)
+        return expand_pairs_plain(table, bounds, k, width, height, config, keys_only)
     if table.device.type != "cuda":
         raise ValueError(f"expand_pairs runs on CPU or CUDA tensors, got {table.device}")
     if not (table.is_contiguous() and bounds.is_contiguous()):
@@ -312,12 +371,12 @@ def expand_pairs(table, bounds, k: int, width: int, height: int, config: Rasteri
     tiles_x, tiles_y = tile_grid(width, height, config)
     num_tiles = tiles_x * tiles_y
     comp = torch.empty(k, dtype=torch.int64, device=table.device)
-    fields = torch.empty((NUM_FIELDS, k), dtype=torch.float32, device=table.device)
+    fields = None if keys_only else torch.empty((NUM_FIELDS, k), dtype=torch.float32, device=table.device)
     cuda_build.launch(
         "pair_expand", "expand_pairs_launch", table.device,
         table.data_ptr(), bounds.data_ptr(), n, k, tiles_x, num_tiles,
         config.tile_w, config.tile_h, depth_key_bits(num_tiles, config), config.alpha_discard,
-        expand_flags(config), comp.data_ptr(), fields.data_ptr(),
+        expand_flags(config), comp.data_ptr(), None if keys_only else fields.data_ptr(),
     )
     return comp, fields
 
@@ -368,10 +427,11 @@ def sort_passes(num_tiles: int, db: int) -> int:
 
 def sort_pairs_plain(comp, fields, num_tiles: int, db: int):
     """Plain PyTorch version of :func:`sort_pairs`: one stable ``torch.sort``
-    of the int64 keys, the gather of the fields by its permutation, and
-    ``searchsorted`` over the sorted keys for the tile starts."""
+    of the int64 keys, the gather of the fields by its permutation (neither
+    kept without fields), and ``searchsorted`` over the sorted keys for the
+    tile starts."""
     comp_s, perm = torch.sort(comp, stable=True)
-    fields_s = fields.index_select(1, perm)
+    fields_s, perm = (None, None) if fields is None else (fields.index_select(1, perm), perm)
     tile_keys = (torch.arange(num_tiles + 1, device=comp.device, dtype=torch.int64) << db) << SPLAT_BITS
     tile_starts = torch.searchsorted(comp_s, tile_keys).to(torch.int32)
     pair_tile = (comp_s >> (SPLAT_BITS + db)).to(torch.int32)
@@ -379,11 +439,11 @@ def sort_pairs_plain(comp, fields, num_tiles: int, db: int):
     return fields_s, tile_starts, perm, pair_tile, pair_rank
 
 
-def sort_keys_cuda(comp, num_tiles: int, db: int):
+def sort_keys_cuda(comp, num_tiles: int, db: int, with_perm: bool = True):
     """The pair sort's kernels (``csrc/pair_sort.cu``) on K2's int64 keys
     ``comp`` (K,), a CUDA tensor: ``(tile_starts (T+1,) i32, perm (K,) i64,
     pair_tile (K,) i32, pair_rank (K,) i32)``, as :func:`sort_pairs_plain`
-    gives them.
+    gives them; ``perm`` None, and not written, without ``with_perm``.
 
     The splat id below bit 31 never falls as the slot rises (slots are
     splat-major), so a stable sort of ``comp >> 31``, the
@@ -409,7 +469,7 @@ def sort_keys_cuda(comp, num_tiles: int, db: int):
     splats = torch.empty(k, dtype=torch.int32, device=dev)
     state = torch.empty(passes * (radix + 1), dtype=torch.int32, device=dev)
     lookback = torch.empty((2, tiles, radix), dtype=torch.int64, device=dev)
-    perm = torch.empty(k, dtype=torch.int64, device=dev)
+    perm = torch.empty(k, dtype=torch.int64, device=dev) if with_perm else None
     pair_tile = torch.empty(k, dtype=torch.int32, device=dev)
     pair_rank = torch.empty(k, dtype=torch.int32, device=dev)
     tile_starts = torch.empty(num_tiles + 1, dtype=torch.int32, device=dev)
@@ -419,7 +479,8 @@ def sort_keys_cuda(comp, num_tiles: int, db: int):
         cuda_build.launch(
             "pair_sort", "pair_sort_pass_launch", dev,
             comp.data_ptr(), keys.data_ptr(), vals.data_ptr(), splats.data_ptr(), k, p, passes, db,
-            state.data_ptr(), lookback.data_ptr(), tiles, perm.data_ptr(), pair_tile.data_ptr(), pair_rank.data_ptr(),
+            state.data_ptr(), lookback.data_ptr(), tiles, perm.data_ptr() if with_perm else None, pair_tile.data_ptr(),
+            pair_rank.data_ptr(),
         )
     cuda_build.launch("pair_sort", "pair_sort_starts_launch", dev,
                       pair_tile.data_ptr(), k, num_tiles, tile_starts.data_ptr())
@@ -434,7 +495,10 @@ def sort_pairs(comp, fields, num_tiles: int, db: int):
     sorted pair ``j``, ``pair_tile`` its tile (``num_tiles``: the sentinel)
     and ``pair_rank`` its splat id (N for unused slots).  Ties in the key
     are never-used tail slots or repeated culls of one splat, whose fields
-    are equal; the sort is stable, so ``perm`` is the one order.
+    are equal; the sort is stable, so ``perm`` is the one order.  ``fields``
+    None (a frame that reads the per-splat records through ``pair_rank``):
+    no per-slot data to move, so nothing is gathered and no permutation is
+    kept: the first and third outputs are None.
 
     Replaces no TPU kernel (the TPU package's sort is XLA's
     ``jax.lax.sort``).  CUDA tensors launch :func:`sort_keys_cuda`'s
@@ -444,32 +508,41 @@ def sort_pairs(comp, fields, num_tiles: int, db: int):
     k = comp.shape[0]
     if comp.dim() != 1 or comp.dtype != torch.int64:
         raise ValueError(f"comp must be (K,) int64, got {tuple(comp.shape)} {comp.dtype}")
-    if fields.shape != (NUM_FIELDS, k) or fields.device != comp.device:
+    if fields is not None and (fields.shape != (NUM_FIELDS, k) or fields.device != comp.device):
         raise ValueError(f"fields must be ({NUM_FIELDS}, {k}) on {comp.device}, got {tuple(fields.shape)} on "
                          f"{fields.device}")
     if comp.device.type == "cpu":
         return sort_pairs_plain(comp, fields, num_tiles, db)
     if comp.device.type != "cuda":
         raise ValueError(f"sort_pairs runs on CPU or CUDA tensors, got {comp.device}")
-    tile_starts, perm, pair_tile, pair_rank = sort_keys_cuda(comp, num_tiles, db)
-    return fields.index_select(1, perm), tile_starts, perm, pair_tile, pair_rank
+    tile_starts, perm, pair_tile, pair_rank = sort_keys_cuda(comp, num_tiles, db, with_perm=fields is not None)
+    fields_s = None if fields is None else fields.index_select(1, perm)
+    return fields_s, tile_starts, perm, pair_tile, pair_rank
 
 
-def bin_and_prepare(proj, width: int, height: int, config: RasterizeConfig = RasterizeConfig()):
+def bin_and_prepare(proj, width: int, height: int, config: RasterizeConfig = RasterizeConfig(),
+                    records: bool = False):
     """Fused binning + pair-field preparation.
 
-    Returns ``(TileBinning, fields (10, K) float32 in sorted pair order,
-    num_real () int32)``; ``binning.num_pairs`` is the slot demand including
-    one sentinel slot per dead splat, ``binning.pair_rank`` the splat id per
-    sorted pair (N for unused slots).
+    Returns ``(TileBinning, fields, num_real () int32)``;
+    ``binning.num_pairs`` is the slot demand including one sentinel slot per
+    dead splat, ``binning.pair_rank`` the splat id per sorted pair (N for
+    unused slots).  ``fields`` is (10, K) float32 in sorted pair order: K2
+    writes them per slot and the sort gathers them.  With ``records`` (a
+    frame without autograd, where :func:`per_splat_fields` holds) it is the
+    (N, 12) float32 per-splat record instead, written by the per-splat pass:
+    K2 writes keys only, nothing is gathered, and the composite reads sorted
+    pair ``j``'s fields at row ``binning.pair_rank[j]``
+    (``composite_tiles(..., pair_rank=binning.pair_rank)``); the sort keeps
+    no permutation then (``binning.perm`` None), as nothing per slot is moved.
     """
     n = proj.depth.shape[0]
     tiles_x, tiles_y = tile_grid(width, height, config)
     num_tiles = tiles_x * tiles_y
     db = depth_key_bits(num_tiles, config)
     k = pair_budget(n, config)
-    table, bounds, num_real = prepare_table(proj, width, height, config)
-    comp, fields = expand_pairs(table, bounds, k, width, height, config)
+    table, bounds, num_real, *record = prepare_table(proj, width, height, config, records)
+    comp, fields = expand_pairs(table, bounds, k, width, height, config, keys_only=records)
     with record_function("splat_sort"):
         fields_s, tile_starts, perm, pair_tile, pair_rank = sort_pairs(comp, fields, num_tiles, db)
     binning = TileBinning(
@@ -480,4 +553,4 @@ def bin_and_prepare(proj, width: int, height: int, config: RasterizeConfig = Ras
         perm=perm,
         bounds=bounds,
     )
-    return binning, fields_s, num_real
+    return binning, record[0] if records else fields_s, num_real

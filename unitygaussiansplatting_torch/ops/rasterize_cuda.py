@@ -6,9 +6,11 @@
 its CTAs splitting the tile's pixels, walks the tile's sorted pair range in
 steps cut at global multiples of ``chunk_size`` and takes the per-step exit
 together.  On request it saves the state K3 starts its segments from.
-:class:`Rasterize` runs binning (K2 + sort) and K1 and untiles the result;
-its backward runs the backward composite (K3) and the run reduce (K4) of
-``rasterize_cuda_bwd``.
+:class:`Rasterize` runs binning (K2 + sort) and K1 and untiles the result: a
+frame without autograd reads each pair's fields from its splat's record
+through the splat id the sort writes, a frame that records a graph from the
+sorted per-slot fields K3 reads too.  Its backward runs the backward
+composite (K3) and the run reduce (K4) of ``rasterize_cuda_bwd``.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from torch.profiler import record_function
 from ..utils.config import RasterizeConfig
 from . import cuda_build
 from .binning import tile_grid
-from .pair_expand import NUM_FIELDS, bin_and_prepare
+from .pair_expand import NUM_FIELDS, RECORD_FLOATS, bin_and_prepare, inverse_axes, per_splat_fields
 from .projection import ProjectedSplats, needs_graph
 from .rasterize_cuda_bwd import (
     SEGMENT_STEPS, Checkpoints, composite_bwd, run_reduce, segment_capacity, segment_starts,
@@ -29,15 +31,16 @@ from .rasterize_cuda_bwd import (
 
 
 def composite_tiles_plain(fields, tile_starts, width: int, height: int, config: RasterizeConfig,
-                          checkpoints: bool = False, segment_steps: int = SEGMENT_STEPS):
+                          checkpoints: bool = False, segment_steps: int = SEGMENT_STEPS, pair_rank=None):
     """Plain PyTorch version of K1: the same steps, per tile, in a Python loop.
 
     Per step the (pairs, pixels) alphas, the exclusive prefix product of
     ``1 - alpha`` along the pairs (``torch.cumprod``) and the weighted color
     sums are whole-tensor operations; the early exit reads the tile's max
-    transmittance before each step.  Returns what :func:`composite_tiles`
-    returns, the :class:`Checkpoints` at every ``segment_steps``-th step with
-    ``checkpoints``.
+    transmittance before each step.  With ``pair_rank`` the pairs' inputs
+    are the record rows ``fields[pair_rank]``, as the kernel reads them.
+    Returns what :func:`composite_tiles` returns, the :class:`Checkpoints` at
+    every ``segment_steps``-th step with ``checkpoints``.
     """
     tiles_x, tiles_y = tile_grid(width, height, config)
     num_tiles = tiles_x * tiles_y
@@ -48,13 +51,17 @@ def composite_tiles_plain(fields, tile_starts, width: int, height: int, config: 
     if checkpoints:
         seg_starts = segment_starts(tile_starts, c, segment_steps)
         seg_first = seg_starts.tolist()
-        cap = segment_capacity(fields.shape[1], num_tiles, c, segment_steps)
+        k = fields.shape[1] if pair_rank is None else pair_rank.shape[0]
+        cap = segment_capacity(k, num_tiles, c, segment_steps)
         state = torch.zeros((cap, 4, npix), dtype=torch.float32, device=dev)
     pairs_done = torch.zeros(num_tiles, dtype=torch.int32, device=dev)
-    a1x, a1y, a2x, a2y = fields[2], fields[3], fields[4], fields[5]
-    a1_sq = torch.clamp(a1x * a1x + a1y * a1y, min=1e-12)
-    a2_sq = torch.clamp(a2x * a2x + a2y * a2y, min=1e-12)
-    ux, uy, vx, vy = a1x / a1_sq, a1y / a1_sq, a2x / a2_sq, a2y / a2_sq
+    if pair_rank is None:
+        cx, cy, op, rgb = fields[0], fields[1], fields[9], fields[6:9]
+        ux, uy, vx, vy = inverse_axes(*fields[2:6])
+    else:
+        # The real tiles' pairs [0, tile_starts[T]) hold splat ids < N.
+        rec = fields[pair_rank[: int(tile_starts[-1])].long()].T
+        cx, cy, ux, uy, vx, vy, op, rgb = *rec[:7], rec[8:11]
     lane = torch.arange(npix, device=dev)
     lane_x = (lane % tw).to(torch.float32)
     lane_y = torch.div(lane, tw, rounding_mode="floor").to(torch.float32)
@@ -67,21 +74,21 @@ def composite_tiles_plain(fields, tile_starts, width: int, height: int, config: 
         py = (t // tiles_x) * float(th) + lane_y + 0.5
         cov = torch.zeros(npix, dtype=torch.float32, device=dev)
         tprod = torch.ones(npix, dtype=torch.float32, device=dev)
-        rgb = torch.zeros((3, npix), dtype=torch.float32, device=dev)
+        acc = torch.zeros((3, npix), dtype=torch.float32, device=dev)
         done = 0
         for step, blk in enumerate(range(s // c, (e - 1) // c + 1)):
             trans = 1.0 - cov
             if not bool(torch.max(trans) >= config.transmittance_eps):
                 break
             if checkpoints and step % segment_steps == 0:
-                state[seg_first[t] + step // segment_steps] = torch.cat([tprod[None], rgb])
+                state[seg_first[t] + step // segment_steps] = torch.cat([tprod[None], acc])
             lo, hi = max(s, blk * c), min(e, (blk + 1) * c)
             w = slice(lo, hi)
-            dx = px[None, :] - fields[0, w, None]
-            dy = py[None, :] - fields[1, w, None]
+            dx = px[None, :] - cx[w, None]
+            dy = py[None, :] - cy[w, None]
             qx = dx * ux[w, None] + dy * uy[w, None]
             qy = dx * vx[w, None] + dy * vy[w, None]
-            alpha = torch.exp(-(qx * qx + qy * qy)) * fields[9, w, None]
+            alpha = torch.exp(-(qx * qx + qy * qy)) * op[w, None]
             alpha = torch.clamp(alpha, 0.0, config.alpha_max)
             keep = alpha >= config.alpha_discard
             if config.quad_clip:
@@ -90,11 +97,11 @@ def composite_tiles_plain(fields, tile_starts, width: int, height: int, config: 
             cum = torch.cumprod(1.0 - alpha, dim=0)
             excl = torch.cat([torch.ones_like(cum[:1]), cum[:-1]])
             wgt = excl * alpha * trans[None, :]
-            rgb += torch.sum(wgt[None] * fields[6:9, w, None], dim=1)
+            acc += torch.sum(wgt[None] * rgb[:, w, None], dim=1)
             cov = 1.0 - trans * cum[-1]
             tprod = tprod * cum[-1]
             done += hi - lo
-        raw[t, :3] = rgb
+        raw[t, :3] = acc
         raw[t, 3] = cov
         pairs_done[t] = done
     ckpt = Checkpoints(state, seg_starts, pairs_done, segment_steps) if checkpoints else None
@@ -115,11 +122,14 @@ def _check_clusters(device: int, npix: int, chunk: int) -> None:
 
 
 def composite_tiles(fields, tile_starts, width: int, height: int, config: RasterizeConfig,
-                    checkpoints: bool = False, segment_steps: int = SEGMENT_STEPS):
+                    checkpoints: bool = False, segment_steps: int = SEGMENT_STEPS, pair_rank=None):
     """K1: composite every tile's depth-sorted pairs.
 
-    ``fields`` (10, K) float32 in sorted pair order, ``tile_starts`` (T+1,)
-    int32.  Returns ``(raw (T+1, 4, P) float32, pairs_done (T,) int32,
+    ``fields`` (10, K) float32 in sorted pair order; or, with ``pair_rank``
+    (K,) int32 (``TileBinning.pair_rank``: each sorted pair's splat id),
+    the per-splat record (N, 12) float32 that ``bin_and_prepare(...,
+    records=True)`` gives, which sorted pair ``j`` reads at row
+    ``pair_rank[j]``.  ``tile_starts`` (T+1,) int32.  Returns ``(raw (T+1, 4, P) float32, pairs_done (T,) int32,
     checkpoints)``: premultiplied rgb + coverage per tile pixel (row T, the
     sentinel tile, is zero), the pairs each tile composited before its early
     exit, and with ``checkpoints`` the :class:`Checkpoints` that K3 starts its
@@ -138,18 +148,30 @@ def composite_tiles(fields, tile_starts, width: int, height: int, config: Raster
         raise ValueError(f"segment_steps must be >= 1, got {segment_steps}")
     tiles_x, tiles_y = tile_grid(width, height, config)
     num_tiles = tiles_x * tiles_y
-    if fields.dim() != 2 or fields.shape[0] != NUM_FIELDS or fields.dtype != torch.float32:
-        raise ValueError(f"fields must be ({NUM_FIELDS}, K) float32, got {tuple(fields.shape)} {fields.dtype}")
+    if pair_rank is None:
+        if fields.dim() != 2 or fields.shape[0] != NUM_FIELDS or fields.dtype != torch.float32:
+            raise ValueError(f"fields must be ({NUM_FIELDS}, K) float32, got {tuple(fields.shape)} {fields.dtype}")
+        k = fields.shape[1]
+    else:
+        if fields.dim() != 2 or fields.shape[1] != RECORD_FLOATS or fields.dtype != torch.float32:
+            raise ValueError(f"records must be (N, {RECORD_FLOATS}) float32, got {tuple(fields.shape)} {fields.dtype}")
+        if pair_rank.dim() != 1 or pair_rank.dtype != torch.int32 or pair_rank.device != fields.device:
+            raise ValueError(f"pair_rank must be (K,) int32 on {fields.device}, got {tuple(pair_rank.shape)} "
+                             f"{pair_rank.dtype} on {pair_rank.device}")
+        k = pair_rank.shape[0]
     if tile_starts.shape != (num_tiles + 1,) or tile_starts.dtype != torch.int32:
         raise ValueError(f"tile_starts must be ({num_tiles + 1},) int32, got {tuple(tile_starts.shape)} {tile_starts.dtype}")
     if tile_starts.device != fields.device:
         raise ValueError("fields and tile_starts must be on one device")
     if fields.device.type == "cpu":
-        return composite_tiles_plain(fields, tile_starts, width, height, config, checkpoints, segment_steps)
+        return composite_tiles_plain(fields, tile_starts, width, height, config, checkpoints, segment_steps,
+                                     pair_rank)
     if fields.device.type != "cuda":
         raise ValueError(f"composite_tiles runs on CPU or CUDA tensors, got {fields.device}")
     if not (fields.is_contiguous() and tile_starts.is_contiguous()):
         raise ValueError("fields and tile_starts must be contiguous")
+    if pair_rank is not None and not (pair_rank.is_contiguous() and fields.data_ptr() % 16 == 0):
+        raise ValueError("pair_rank must be contiguous and the records 16-byte aligned")
     npix = config.tile_w * config.tile_h
     lib = cuda_build.library("composite_fwd")
     if lib.composite_fwd_pixels_per_thread(npix) == 0:
@@ -162,11 +184,12 @@ def composite_tiles(fields, tile_starts, width: int, height: int, config: Raster
     seg_starts = state = None
     if checkpoints:
         seg_starts = segment_starts(tile_starts, config.chunk_size, segment_steps)
-        cap = segment_capacity(fields.shape[1], num_tiles, config.chunk_size, segment_steps)
+        cap = segment_capacity(k, num_tiles, config.chunk_size, segment_steps)
         state = torch.empty((cap, 4, npix), dtype=torch.float32, device=dev)
     cuda_build.launch(
         "composite_fwd", "composite_fwd_launch", dev,
-        fields.data_ptr(), fields.shape[1], tile_starts.data_ptr(), tile_order.data_ptr(), num_tiles,
+        fields.data_ptr(), k, None if pair_rank is None else pair_rank.data_ptr(), tile_starts.data_ptr(),
+        tile_order.data_ptr(), num_tiles,
         tiles_x, config.tile_w, config.tile_h, config.chunk_size, config.transmittance_eps,
         config.alpha_discard, config.alpha_max, int(config.quad_clip),
         raw.data_ptr(), pairs_done.data_ptr(), seg_starts.data_ptr() if checkpoints else None,
@@ -198,7 +221,10 @@ def tile_layout(img, width: int, height: int, config: RasterizeConfig):
 
 class Rasterize(torch.autograd.Function):
     """Bin (K2 + sort) and composite (K1): ``(image (H, W, 4), slot demand
-    () int32)``.
+    () int32)``.  Without ``need_grad`` (and where
+    :func:`~.pair_expand.per_splat_fields` holds) K1 reads each pair's
+    fields from its splat's record through ``binning.pair_rank``; with it,
+    from the sorted per-slot fields, which the backward reads too.
 
     The port of the TPU package's ``rasterize_tiles_pallas_diff`` custom VJP
     (``_diff_fwd``/``_diff_bwd``).  The backward lays the image gradient out
@@ -215,11 +241,13 @@ class Rasterize(torch.autograd.Function):
     def forward(ctx, center, axis1, axis2, color, opacity, depth, valid, conic, width, height, config,
                 need_grad):
         proj = ProjectedSplats(depth, center, axis1, axis2, conic, color, opacity, valid)
+        records = not need_grad and per_splat_fields(config)
         with record_function("splat_bin"):
-            binning, fields, _ = bin_and_prepare(proj, width, height, config)
+            binning, fields, _ = bin_and_prepare(proj, width, height, config, records)
         ctx.mark_non_differentiable(binning.num_pairs)
         if not need_grad:
-            raw, _, _ = composite_tiles(fields, binning.tile_starts, width, height, config)
+            raw, _, _ = composite_tiles(fields, binning.tile_starts, width, height, config,
+                                        pair_rank=binning.pair_rank if records else None)
             return untile(raw, width, height, config), binning.num_pairs
         raw, _, ckpt = composite_tiles(fields, binning.tile_starts, width, height, config, checkpoints=True)
         ctx.save_for_backward(fields, binning.tile_starts, raw, binning.perm, binning.bounds,

@@ -26,7 +26,7 @@ import time
 import torch
 
 from ..ops.binning import pair_budget, tile_grid
-from ..ops.pair_expand import NUM_FIELDS, TABLE_ROWS, bin_and_prepare
+from ..ops.pair_expand import NUM_FIELDS, TABLE_ROWS, bin_and_prepare, per_splat_fields
 from ..ops.projection import project_splats
 from ..ops.rasterize_cuda import composite_tiles, untile
 from ..utils.config import RasterizeConfig, RenderSettings
@@ -180,8 +180,9 @@ def render_phases(
     """Time each stage of the forward frame as its own call.
 
     Stages: ``decode`` (a ``DeviceAsset`` only), ``project``,
-    ``bin_prepare`` (the per-splat pass, the scan, K2, the sort and the
-    gather), ``kernel_untile`` (K1 and the untile), and their sum
+    ``bin_prepare`` (the per-splat pass, the scan, K2 and the sort, on the
+    frame's route: the gather of the per-slot fields only under center
+    packing), ``kernel_untile`` (K1 and the untile), and their sum
     ``total_unfused``.  The JAX package's ``schedule`` stage has no
     counterpart: K1 reads the tile starts directly.  Each stage is the mean
     of ``reps`` calls after two untimed ones: CUDA events on a card, the host
@@ -207,10 +208,13 @@ def render_phases(
         else:
             g = gaussians.to(dev)
         phases["project"], proj = _time_call(lambda: project_splats(g, camera, settings), dev, reps)
+        records = per_splat_fields(config)
         phases["bin_prepare"], (binning, fields, num_real) = _time_call(
-            lambda: bin_and_prepare(proj, w, h, config), dev, reps)
+            lambda: bin_and_prepare(proj, w, h, config, records), dev, reps)
+        pair_rank = binning.pair_rank if records else None
         phases["kernel_untile"], _ = _time_call(
-            lambda: untile(composite_tiles(fields, binning.tile_starts, w, h, config)[0], w, h, config), dev, reps)
+            lambda: untile(composite_tiles(fields, binning.tile_starts, w, h, config, pair_rank=pair_rank)[0], w, h,
+                           config), dev, reps)
     phases["total_unfused"] = sum(phases.values())
     budget = pair_budget(g.num_splats, config)
     num_pairs = int(binning.num_pairs)
