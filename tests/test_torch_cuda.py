@@ -261,7 +261,8 @@ STRIP_ROWS = HEIGHT // 2
 def sort_case(device, name):
     """K2's plain outputs for one of SORT_SCENES, the pair sort's inputs in
     its CPU tests (tests/test_torch_pair_sort.py) and here: ``(comp,
-    fields, num_tiles, db)``."""
+    fields, num_tiles, db, demand)``, the last the slot demand ``bounds[N]``
+    (() int32)."""
     height = HEIGHT
     if name.startswith("sphere"):
         proj, cfg = sphere_projection(device), RasterizeConfig(**(HEADLINE if name == "sphere-headline" else {}))
@@ -275,7 +276,7 @@ def sort_case(device, name):
     num_tiles = tiles_x * tiles_y
     table, bounds, _ = pe.prepare_table_plain(proj, WIDTH, height, cfg)
     comp, fields = pe.expand_pairs_plain(table, bounds, pair_budget(table.shape[1], cfg), WIDTH, height, cfg)
-    return comp, fields, num_tiles, depth_key_bits(num_tiles, cfg)
+    return comp, fields, num_tiles, depth_key_bits(num_tiles, cfg), bounds[-1]
 
 
 def assert_sort_matches_plain(comp, fields, num_tiles, db):
@@ -297,6 +298,29 @@ def assert_sort_matches_plain(comp, fields, num_tiles, db):
     return got
 
 
+def assert_record_sort_matches_plain(comp, num_tiles, db, demand):
+    """The pair sort's record route (no fields, the slots below ``demand``)
+    against its plain version: ``tile_starts`` bit for bit, ``pair_tile``
+    and ``pair_rank`` on ``[0, tile_starts[num_tiles])``, the pairs of real
+    tiles (the route leaves the rest unwritten), no permutation, and the
+    launches of the per-slot route.  Returns the sorted pairs' count R."""
+    before = cuda_build.launched.copy()
+    got = pe.sort_pairs(comp, None, num_tiles, db, demand)
+    want = pe.sort_pairs_plain(comp, None, num_tiles, db)
+    torch.cuda.synchronize()
+    took = cuda_build.launched - before
+    assert {e: took[e] for e in SORT_ENTRIES} == {
+        "pair_sort_upsweep_launch": 1, "pair_sort_pass_launch": pe.sort_passes(num_tiles, db),
+        "pair_sort_starts_launch": 1}
+    (none, starts, perm, tiles, ranks), (_, want_starts, _, want_tiles, want_ranks) = got, want
+    assert none is None and perm is None
+    assert torch.equal(starts, want_starts)
+    real = int(starts[-1])
+    assert tiles.shape == ranks.shape == comp.shape and tiles.dtype == ranks.dtype == torch.int32
+    assert torch.equal(tiles[:real], want_tiles[:real]) and torch.equal(ranks[:real], want_ranks[:real])
+    return real
+
+
 def equal_key_case(device, name, k):
     """``k`` slots of three splats each: every key equal (stability decides
     the whole order), or every key in the sentinel tile with seeded depths."""
@@ -311,45 +335,65 @@ def equal_key_case(device, name, k):
         key = (num_tiles << db) | depth[slot // 3]
     comp = (key << pe.SPLAT_BITS) | (slot // 3)
     fields = torch.arange(pe.NUM_FIELDS * k, device=device, dtype=torch.float32).reshape(pe.NUM_FIELDS, k)
-    return comp, fields, num_tiles, db
+    return comp, fields, num_tiles, db, None
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", SORT_SCENES + ["odd-k", "equal-keys", "sentinel-keys", "bicycle-budget"])
+@pytest.mark.parametrize("name", SORT_SCENES + ["odd-k", "equal-keys", "sentinel-keys", "bicycle-budget",
+                                                "demand-below-k"])
 def test_pair_sort_kernel_matches_plain(device, name):
+    # Both routes: the per-slot route (fields) over every slot, every output
+    # bit for bit; the record route (no fields) over the slots below the
+    # demand, the pairs of real tiles alone.
     tile_keys = cuda_build.library("pair_sort").pair_sort_tile_keys()
     if name in SORT_SCENES:
         case = sort_case(device, name)
-    elif name == "odd-k":  # the sphere at a budget that is no multiple of a pass's tile
+    elif name in ("odd-k", "demand-below-k"):
+        # The sphere at a budget that is no multiple of a pass's tile; or at
+        # one more than two tiles above the demand, which is no multiple of
+        # a tile either: pass 0's blocks past the demand exit at once, and
+        # the last blocks of the demand and of the real pairs are ragged.
         cfg = RasterizeConfig()
         table, bounds, _ = pipeline_inputs(device, cfg)
-        num_tiles = 12
-        comp, fields = pe.expand_pairs(table, bounds, 3 * tile_keys + 1001, WIDTH, HEIGHT, cfg)
-        case = comp, fields, num_tiles, depth_key_bits(num_tiles)
+        demand = int(bounds[-1])
+        k = 3 * tile_keys + 1001 if name == "odd-k" else demand + 2 * tile_keys + 123
+        tiles_x, tiles_y = tile_grid(WIDTH, HEIGHT, cfg)
+        num_tiles = 12 if name == "odd-k" else tiles_x * tiles_y
+        comp, fields = pe.expand_pairs(table, bounds, k, WIDTH, HEIGHT, cfg)
+        case = comp, fields, num_tiles, depth_key_bits(num_tiles), bounds[-1]
     elif name in ("equal-keys", "sentinel-keys"):
         case = equal_key_case(device, name, 40 * tile_keys + 77)
     else:
         case = bicycle_budget(device)
-    comp = case[0]
+    comp, fields, num_tiles, db, demand = case
     if name in ("odd-k", "equal-keys", "sentinel-keys"):
         assert comp.shape[0] % tile_keys  # a pass's last tile is ragged
-    _, _, perm, _, _ = assert_sort_matches_plain(*case)
+    _, _, perm, _, _ = assert_sort_matches_plain(comp, fields, num_tiles, db)
     if name == "equal-keys":
         assert torch.equal(perm, torch.arange(comp.shape[0], device=device))
+    real = assert_record_sort_matches_plain(comp, num_tiles, db, demand)
+    if name in ("empty", "behind-camera", "sentinel-keys"):  # every slot in the sentinel tile
+        assert real == 0
+    if name == "equal-keys":
+        assert real == comp.shape[0]
+    if name == "demand-below-k":
+        demand = int(demand)
+        assert demand % tile_keys and real % tile_keys and demand < comp.shape[0] - 2 * tile_keys
     if name == "bicycle-budget":
-        assert comp.shape[0] >= 15_000_000 and pe.sort_passes(case[2], case[3]) == 4
+        assert comp.shape[0] >= 15_000_000 and pe.sort_passes(num_tiles, db) == 4
+        assert 0 < real < int(demand) < comp.shape[0]
 
 
 def bicycle_budget(device):
     """K2's keys and fields for the benchmark's bicycle-class cloud (6.1M
     splats) seen from its orbit at 1200x797, at a budget of 2.5 slots a
-    splat."""
+    splat: ``(comp, fields, num_tiles, db, demand)``."""
     proj, cfg, width, height = bicycle_projection(device)
     with torch.no_grad():
         table, bounds, _ = pe.prepare_table(proj, width, height, cfg)
         comp, fields = pe.expand_pairs(table, bounds, pair_budget(table.shape[1], cfg), width, height, cfg)
     tiles_x, tiles_y = tile_grid(width, height, cfg)
-    return comp, fields, tiles_x * tiles_y, depth_key_bits(tiles_x * tiles_y)
+    return comp, fields, tiles_x * tiles_y, depth_key_bits(tiles_x * tiles_y), bounds[-1]
 
 
 def route_case(device, name):
@@ -398,10 +442,10 @@ ROUTE_CASES = [name for name in TABLE_CONFIGS if name != "center-f16"] + [
 def test_record_route_matches_slot_route(device, name):
     # A frame's two routes on the card: the per-slot fields K2 writes and the
     # sort gathers, against the per-splat records K1 reads through each
-    # pair's splat id.  The same keys, order and tile starts, and K1's image,
-    # exits and checkpoints bit for bit; the record route launches the same
-    # kernels (K2 writing keys only, the sort no permutation) and gathers
-    # nothing.
+    # pair's splat id.  The same keys, tile starts and order of the real
+    # tiles' pairs (all the record route sorts), and K1's image, exits and
+    # checkpoints bit for bit; the record route launches the same kernels
+    # (K2 writing keys only, the sort no permutation) and gathers nothing.
     proj, cfg, width, height, k = route_case(device, name)
     tiles_x, tiles_y = tile_grid(width, height, cfg)
     num_tiles = tiles_x * tiles_y
@@ -416,7 +460,7 @@ def test_record_route_matches_slot_route(device, name):
     before = cuda_build.launched.copy()
     table_r, bounds_r, _, record = pe.prepare_table(proj, width, height, cfg, records=True)
     comp_r, none = pe.expand_pairs(table_r, bounds_r, k, width, height, cfg, keys_only=True)
-    sorted_none, starts_r, perm_none, _, ranks_r = pe.sort_pairs(comp_r, None, num_tiles, db)
+    sorted_none, starts_r, perm_none, _, ranks_r = pe.sort_pairs(comp_r, None, num_tiles, db, bounds_r[-1])
     new = rc.composite_tiles(record, starts_r, width, height, cfg, checkpoints=True, pair_rank=ranks_r)
     torch.cuda.synchronize()
     took = cuda_build.launched - before
@@ -424,7 +468,8 @@ def test_record_route_matches_slot_route(device, name):
         ("pair_table_launch", "expand_pairs_launch", "composite_fwd_launch"), 1)
     assert none is None and sorted_none is None and perm_none is None
     assert torch.equal(table_r.view(torch.int32), table.view(torch.int32)) and torch.equal(bounds_r, bounds)
-    assert torch.equal(comp_r, comp) and torch.equal(starts_r, starts) and torch.equal(ranks_r, ranks)
+    real = int(starts[-1])
+    assert torch.equal(comp_r, comp) and torch.equal(starts_r, starts) and torch.equal(ranks_r[:real], ranks[:real])
     (raw, done, ck), (raw_r, done_r, ck_r) = old, new
     assert torch.equal(raw_r.view(torch.int32), raw.view(torch.int32)) and torch.equal(done_r, done)
     assert torch.equal(ck_r.seg_starts, ck.seg_starts)

@@ -217,7 +217,7 @@ def test_frame_route_follows_the_config(name, monkeypatch):
         return real(fields, *args, pair_rank=pair_rank, **kwargs)
 
     monkeypatch.setattr(trc, "composite_tiles", spy)
-    img, _ = trc.rasterize(proj, tp.WIDTH, tp.HEIGHT, cfg)
+    img, *_ = trc.rasterize(proj, tp.WIDTH, tp.HEIGHT, cfg)
     k = tpe.pair_budget(proj.depth.shape[0], cfg)
     want = [((1500, tpe.RECORD_FLOATS), True)] if name == "default" else [((tpe.NUM_FIELDS, k), False)]
     assert seen == want and bool(img[..., 3].max() > 0.5)

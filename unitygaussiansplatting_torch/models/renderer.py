@@ -42,12 +42,17 @@ class RenderStats(NamedTuple):
     also one sentinel slot per dead splat); above ``budget`` pairs were
     dropped and the frame is missing content (depth-major on the ``"torch"``
     backend, splat-id-major on ``"cuda"``): raise ``config.pair_multiplier``.
+    ``sorted_pairs`` is the pairs of real tiles, ``tile_starts[T]``: what
+    the composite reads and, on a frame's record route on CUDA, what every
+    pass of the pair sort after its first covers (a view of the card's
+    count: no launch, no sync).
     """
 
     num_pairs: torch.Tensor  # () int32 pair demand this frame
     budget: int  # static pair capacity
     overflowed: torch.Tensor  # () bool: num_pairs > budget
     visible: torch.Tensor | None = None  # (N,) bool, when want_visibility
+    sorted_pairs: torch.Tensor | None = None  # () int32 pairs of real tiles this frame
 
 
 def check_overflow(stats: RenderStats, action: str = "warn") -> bool:
@@ -184,16 +189,17 @@ def render_with_stats(
     if backend == "reference":
         img = rasterize_reference(proj, w, h, config)
         zero = torch.zeros((), dtype=torch.int32, device=dev)
-        return img, RenderStats(zero, 0, zero < 0, visible)
+        return img, RenderStats(zero, 0, zero < 0, visible, zero)
     budget = pair_budget(proj.depth.shape[0], config)
     if backend == "torch":
         with record_function("splat_bin"):
             binning = bin_splats(proj, w, h, config)
         img = rasterize_tiles_torch(proj, binning, w, h, config)
-        return img, RenderStats(binning.num_pairs, budget, binning.num_pairs > budget, visible)
+        return img, RenderStats(binning.num_pairs, budget, binning.num_pairs > budget, visible,
+                                binning.tile_starts[-1])
     with record_function("splat_rasterize_cuda"):
-        img, num_pairs = rasterize(proj, w, h, config)
-    return img, RenderStats(num_pairs, budget, num_pairs > budget, visible)
+        img, num_pairs, sorted_pairs = rasterize(proj, w, h, config)
+    return img, RenderStats(num_pairs, budget, num_pairs > budget, visible, sorted_pairs)
 
 
 def render_over_background(

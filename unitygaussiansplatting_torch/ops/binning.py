@@ -32,8 +32,10 @@ class TileBinning(NamedTuple):
     splat-major: ``pair_rank`` holds splat ids (``depth_order`` None, the
     identity), K1's input on a frame's record route (sorted pair ``j``
     reads its fields from record ``pair_rank[j]``), and ``perm``/``bounds``
-    carry what its backward reads.  Other consumers go through
-    :attr:`pair_splat`.
+    carry what its backward reads.  On that record route (``perm`` None) a
+    CUDA sort writes ``pair_rank`` and ``pair_tile`` on ``[0,
+    tile_starts[T])``, the pairs of real tiles, only: entries past it are
+    left unwritten.  Other consumers go through :attr:`pair_splat`.
     """
 
     pair_rank: torch.Tensor  # (K,) int32 index into depth_order (n = sentinel); fused: K1 reads records by it

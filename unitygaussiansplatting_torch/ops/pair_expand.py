@@ -16,12 +16,15 @@ The port of ``bin_and_prepare`` (unitygaussiansplatting_tpu/ops/pair_expand.py):
    configured lattices.
 3. The pair sort, :func:`sort_pairs` (this replaces the TPU package's
    two-key ``jax.lax.sort``): on CUDA a stable radix sort written by hand
-   (``csrc/pair_sort.cu``) of the key's top bits, ``comp >> 31``, with each
-   pair's slot as its value; its last pass writes each sorted pair's tile
-   and splat id (``TileBinning.pair_rank``), and a search over the sorted
-   tiles gives ``tile_starts``.  With per-slot fields a gather by the
-   permutation sorts them; with records there is nothing to gather: K1
-   reads sorted pair ``j``'s fields from record ``pair_rank[j]``.  The key
+   (``csrc/pair_sort.cu``) of the key's top bits, ``comp >> 31``; its last
+   pass writes each sorted pair's tile and splat id
+   (``TileBinning.pair_rank``), and a search over the sorted tiles gives
+   ``tile_starts``.  With per-slot fields every slot is sorted, with its
+   slot as its value, and a gather by the permutation sorts the fields;
+   with records there is nothing to gather (K1 reads sorted pair ``j``'s
+   fields from record ``pair_rank[j]``), and only the pairs of real tiles
+   are sorted, counted on the card: the sentinel tile's slots (the tail
+   past the demand, dead splats, K2's culls) are dropped.  The key
    is shifted by 31, not 32: keys >= 2^31 occur (db = 23 at 475 tiles), and
    a 32-bit shift would make them negative.  On the CPU,
    :func:`sort_pairs_plain`: one ``torch.sort`` of the int64 keys, the
@@ -425,11 +428,13 @@ def sort_passes(num_tiles: int, db: int) -> int:
     return -(-sort_key_bits(num_tiles, db) // SORT_DIGIT_BITS)
 
 
-def sort_pairs_plain(comp, fields, num_tiles: int, db: int):
+def sort_pairs_plain(comp, fields, num_tiles: int, db: int, demand=None):
     """Plain PyTorch version of :func:`sort_pairs`: one stable ``torch.sort``
     of the int64 keys, the gather of the fields by its permutation (neither
     kept without fields), and ``searchsorted`` over the sorted keys for the
-    tile starts."""
+    tile starts.  Every slot is sorted: ``demand`` is not read (every slot
+    at or past it is in the sentinel tile, so the outputs on ``[0,
+    tile_starts[num_tiles])`` are the kernels' either way)."""
     comp_s, perm = torch.sort(comp, stable=True)
     fields_s, perm = (None, None) if fields is None else (fields.index_select(1, perm), perm)
     tile_keys = (torch.arange(num_tiles + 1, device=comp.device, dtype=torch.int64) << db) << SPLAT_BITS
@@ -439,19 +444,28 @@ def sort_pairs_plain(comp, fields, num_tiles: int, db: int):
     return fields_s, tile_starts, perm, pair_tile, pair_rank
 
 
-def sort_keys_cuda(comp, num_tiles: int, db: int, with_perm: bool = True):
+def sort_keys_cuda(comp, num_tiles: int, db: int, with_perm: bool = True, demand=None):
     """The pair sort's kernels (``csrc/pair_sort.cu``) on K2's int64 keys
     ``comp`` (K,), a CUDA tensor: ``(tile_starts (T+1,) i32, perm (K,) i64,
-    pair_tile (K,) i32, pair_rank (K,) i32)``, as :func:`sort_pairs_plain`
-    gives them; ``perm`` None, and not written, without ``with_perm``.
+    pair_tile (K,) i32, pair_rank (K,) i32)``.
 
     The splat id below bit 31 never falls as the slot rises (slots are
     splat-major), so a stable sort of ``comp >> 31``, the
-    :func:`sort_key_bits` bits of (tile | depth), with the slot as its value
-    gives ``torch.sort(comp, stable=True)``'s permutation: one upsweep (every
-    pass's digit histogram), :func:`sort_passes` passes of 8-bit digits (the
-    last writes ``perm``, each pair's tile and its splat id), then a search
-    for each tile's first pair.  Bound on the H100 by bytes.
+    :func:`sort_key_bits` bits of (tile | depth), gives
+    ``torch.sort(comp, stable=True)``'s order: one upsweep (every pass's
+    digit histogram), :func:`sort_passes` passes of 8-bit digits (the last
+    writes each pair's tile and splat id), then a search for each tile's
+    first pair.  Bound on the H100 by bytes.
+
+    ``with_perm``: every slot sorted, each with its slot as its value, and
+    every output as :func:`sort_pairs_plain` gives it, ``perm`` the slot of
+    each sorted pair.  Without it (the record route) ``perm`` is None and
+    only the R pairs of real tiles are sorted: the slots below ``demand``
+    (a () int32 CUDA tensor, the slot demand ``bounds[N]``; None: all K)
+    whose tile is below ``num_tiles``.  R is counted on the card, and
+    ``tile_starts`` is the plain version's (``tile_starts[num_tiles]`` = R);
+    ``pair_tile`` and ``pair_rank`` are the plain version's on ``[0, R)``
+    and left unwritten past it.
     """
     k = comp.shape[0]
     dev = comp.device
@@ -460,34 +474,41 @@ def sort_keys_cuda(comp, num_tiles: int, db: int, with_perm: bool = True):
                          f"{sort_key_bits(num_tiles, db)} bits ({num_tiles} tiles, db={db})")
     if dev.type != "cuda" or not comp.is_contiguous():
         raise ValueError(f"comp must be a contiguous CUDA tensor, got one on {dev}")
+    if demand is not None and (demand.shape != () or demand.dtype != torch.int32 or demand.device != dev):
+        raise ValueError(f"demand must be a () int32 tensor on {dev}, got {tuple(demand.shape)} {demand.dtype} on "
+                         f"{demand.device}")
     passes, radix = sort_passes(num_tiles, db), 1 << SORT_DIGIT_BITS
     tiles = -(-k // cuda_build.library("pair_sort").pair_sort_tile_keys())
-    # Scratch: the keys' and values' double buffers, each slot's splat id,
-    # every pass's histogram and tile counter, the look-back words.
+    # Scratch: the keys' and values' double buffers, each slot's splat id
+    # (with the permutation), every pass's histogram and tile counter and
+    # the record route's R, the look-back words.
     keys = torch.empty((2, k), dtype=torch.int32, device=dev)
     vals = torch.empty((2, k), dtype=torch.int32, device=dev)
-    splats = torch.empty(k, dtype=torch.int32, device=dev)
-    state = torch.empty(passes * (radix + 1), dtype=torch.int32, device=dev)
+    splats = torch.empty(k, dtype=torch.int32, device=dev) if with_perm else None
+    state = torch.empty(passes * (radix + 1) + 1, dtype=torch.int32, device=dev)
     lookback = torch.empty((2, tiles, radix), dtype=torch.int64, device=dev)
     perm = torch.empty(k, dtype=torch.int64, device=dev) if with_perm else None
     pair_tile = torch.empty(k, dtype=torch.int32, device=dev)
     pair_rank = torch.empty(k, dtype=torch.int32, device=dev)
     tile_starts = torch.empty(num_tiles + 1, dtype=torch.int32, device=dev)
+    demand_ptr = None if with_perm or demand is None else demand.data_ptr()
     cuda_build.launch("pair_sort", "pair_sort_upsweep_launch", dev,
-                      comp.data_ptr(), k, passes, state.data_ptr(), lookback.data_ptr(), tiles)
+                      comp.data_ptr(), k, demand_ptr, int(not with_perm), num_tiles, db, passes, state.data_ptr(),
+                      lookback.data_ptr(), tiles)
     for p in range(passes):
         cuda_build.launch(
             "pair_sort", "pair_sort_pass_launch", dev,
-            comp.data_ptr(), keys.data_ptr(), vals.data_ptr(), splats.data_ptr(), k, p, passes, db,
-            state.data_ptr(), lookback.data_ptr(), tiles, perm.data_ptr() if with_perm else None, pair_tile.data_ptr(),
-            pair_rank.data_ptr(),
+            comp.data_ptr(), keys.data_ptr(), vals.data_ptr(), splats.data_ptr() if with_perm else None, k,
+            demand_ptr, num_tiles, p, passes, db, state.data_ptr(), lookback.data_ptr(), tiles,
+            perm.data_ptr() if with_perm else None, pair_tile.data_ptr(), pair_rank.data_ptr(),
         )
     cuda_build.launch("pair_sort", "pair_sort_starts_launch", dev,
-                      pair_tile.data_ptr(), k, num_tiles, tile_starts.data_ptr())
+                      pair_tile.data_ptr(), k, None if with_perm else state[-1:].data_ptr(), num_tiles,
+                      tile_starts.data_ptr())
     return tile_starts, perm, pair_tile, pair_rank
 
 
-def sort_pairs(comp, fields, num_tiles: int, db: int):
+def sort_pairs(comp, fields, num_tiles: int, db: int, demand=None):
     """Sort slots by K2's int64 key and gather their fields.
 
     Returns ``(sorted fields (10, K), tile_starts (T+1,) i32, perm (K,) i64,
@@ -503,7 +524,12 @@ def sort_pairs(comp, fields, num_tiles: int, db: int):
     Replaces no TPU kernel (the TPU package's sort is XLA's
     ``jax.lax.sort``).  CUDA tensors launch :func:`sort_keys_cuda`'s
     kernels, then gather the fields by ``perm``; CPU tensors take
-    :func:`sort_pairs_plain`.
+    :func:`sort_pairs_plain`.  Without ``fields`` on CUDA the kernels sort
+    only the pairs of real tiles, of the slots below ``demand`` (() int32,
+    ``bounds[N]``; None: all K): ``pair_tile`` and ``pair_rank`` past
+    ``tile_starts[num_tiles]`` are left unwritten there, and every reader
+    (K1, :func:`~.rasterize_cuda.composite_tiles_plain`) reads only
+    ``[0, tile_starts[num_tiles])``.
     """
     k = comp.shape[0]
     if comp.dim() != 1 or comp.dtype != torch.int64:
@@ -512,10 +538,10 @@ def sort_pairs(comp, fields, num_tiles: int, db: int):
         raise ValueError(f"fields must be ({NUM_FIELDS}, {k}) on {comp.device}, got {tuple(fields.shape)} on "
                          f"{fields.device}")
     if comp.device.type == "cpu":
-        return sort_pairs_plain(comp, fields, num_tiles, db)
+        return sort_pairs_plain(comp, fields, num_tiles, db, demand)
     if comp.device.type != "cuda":
         raise ValueError(f"sort_pairs runs on CPU or CUDA tensors, got {comp.device}")
-    tile_starts, perm, pair_tile, pair_rank = sort_keys_cuda(comp, num_tiles, db, with_perm=fields is not None)
+    tile_starts, perm, pair_tile, pair_rank = sort_keys_cuda(comp, num_tiles, db, fields is not None, demand)
     fields_s = None if fields is None else fields.index_select(1, perm)
     return fields_s, tile_starts, perm, pair_tile, pair_rank
 
@@ -534,7 +560,10 @@ def bin_and_prepare(proj, width: int, height: int, config: RasterizeConfig = Ras
     K2 writes keys only, nothing is gathered, and the composite reads sorted
     pair ``j``'s fields at row ``binning.pair_rank[j]``
     (``composite_tiles(..., pair_rank=binning.pair_rank)``); the sort keeps
-    no permutation then (``binning.perm`` None), as nothing per slot is moved.
+    no permutation then (``binning.perm`` None), as nothing per slot is
+    moved, and sorts only the pairs of real tiles: ``binning.pair_tile`` and
+    ``binning.pair_rank`` hold them on ``[0, binning.tile_starts[T])`` and
+    are left unwritten past it on CUDA.
     """
     n = proj.depth.shape[0]
     tiles_x, tiles_y = tile_grid(width, height, config)
@@ -544,7 +573,7 @@ def bin_and_prepare(proj, width: int, height: int, config: RasterizeConfig = Ras
     table, bounds, num_real, *record = prepare_table(proj, width, height, config, records)
     comp, fields = expand_pairs(table, bounds, k, width, height, config, keys_only=records)
     with record_function("splat_sort"):
-        fields_s, tile_starts, perm, pair_tile, pair_rank = sort_pairs(comp, fields, num_tiles, db)
+        fields_s, tile_starts, perm, pair_tile, pair_rank = sort_pairs(comp, fields, num_tiles, db, bounds[-1])
     binning = TileBinning(
         pair_rank=pair_rank,
         pair_tile=pair_tile,

@@ -221,7 +221,8 @@ def tile_layout(img, width: int, height: int, config: RasterizeConfig):
 
 class Rasterize(torch.autograd.Function):
     """Bin (K2 + sort) and composite (K1): ``(image (H, W, 4), slot demand
-    () int32)``.  Without ``need_grad`` (and where
+    () int32, sorted pairs () int32)``, the last the pairs of real tiles,
+    ``tile_starts[T]`` (a view: no launch).  Without ``need_grad`` (and where
     :func:`~.pair_expand.per_splat_fields` holds) K1 reads each pair's
     fields from its splat's record through ``binning.pair_rank``; with it,
     from the sorted per-slot fields, which the backward reads too.
@@ -244,20 +245,21 @@ class Rasterize(torch.autograd.Function):
         records = not need_grad and per_splat_fields(config)
         with record_function("splat_bin"):
             binning, fields, _ = bin_and_prepare(proj, width, height, config, records)
-        ctx.mark_non_differentiable(binning.num_pairs)
+        sorted_pairs = binning.tile_starts[-1]
+        ctx.mark_non_differentiable(binning.num_pairs, sorted_pairs)
         if not need_grad:
             raw, _, _ = composite_tiles(fields, binning.tile_starts, width, height, config,
                                         pair_rank=binning.pair_rank if records else None)
-            return untile(raw, width, height, config), binning.num_pairs
+            return untile(raw, width, height, config), binning.num_pairs, sorted_pairs
         raw, _, ckpt = composite_tiles(fields, binning.tile_starts, width, height, config, checkpoints=True)
         ctx.save_for_backward(fields, binning.tile_starts, raw, binning.perm, binning.bounds,
                               ckpt.state, ckpt.seg_starts, ckpt.pairs_done)
         ctx.frame = (width, height, config, ckpt.segment_steps)
-        return untile(raw, width, height, config), binning.num_pairs
+        return untile(raw, width, height, config), binning.num_pairs, sorted_pairs
 
     @staticmethod
     @torch.autograd.function.once_differentiable
-    def backward(ctx, grad_img, _grad_demand):
+    def backward(ctx, grad_img, _grad_demand, _grad_sorted):
         fields, tile_starts, raw, perm, bounds, state, seg_starts, fwd_done = ctx.saved_tensors
         width, height, config, segment_steps = ctx.frame
         dout = tile_layout(grad_img.to(torch.float32), width, height, config)
@@ -271,7 +273,8 @@ class Rasterize(torch.autograd.Function):
 
 
 def rasterize(proj: ProjectedSplats, width: int, height: int, config: RasterizeConfig):
-    """Differentiable rasterization through :class:`Rasterize`; ``(image, demand)``."""
+    """Differentiable rasterization through :class:`Rasterize`; ``(image,
+    demand, sorted pairs)``."""
     inputs = (proj.center, proj.axis1, proj.axis2, proj.color, proj.opacity)
     return Rasterize.apply(
         *inputs, proj.depth, proj.valid, proj.conic, width, height, config, needs_graph(*inputs),
